@@ -3,13 +3,13 @@
 Learn the inflation factor by gradient descent through the assimilation —
 the reference's differentiable-DA workflow (``inf_factor`` as an
 ``nn.Parameter``, /root/reference/tests/unit_tests/core/test_etkf.py:105-126)
-run end-to-end through the TPU fast path.
+run end-to-end through the fused1d window path.
 
 Setup: a cycled Lorenz-96 twin experiment. The loss is the analysis-mean
 RMSE against the (known) truth over a short window — the quantity inflation
 actually trades off (too little: filter divergence; too much: noise-fitting)
-— and ``jax.grad`` flows through the RK4 forecasts AND the monolithic LETKF
-kernel (custom VJP: Pallas forward, plain-XLA Chebyshev reverse;
+— and ``jax.grad`` flows through the RK4 forecasts AND the window LETKF
+analysis (the GPU kernel's reverse rule is the plain-XLA Chebyshev twin;
 docs/solvers.md "Differentiability").
 
 Run: python examples/learn_inflation.py [--steps 30] [--cycles 10]

@@ -3,11 +3,11 @@
 // The reference's hot path rides ATen/LAPACK from Python per grid point
 // (/root/reference/pytassim/core/utils.py:57 torch.symeig inside an
 // np.vectorize loop, interface/letkf.py:127-143) — Python-call-rate bound.
-// This library is the host-side (non-TPU) runtime equivalent: an
+// This library is the host-side (non-accelerator) runtime equivalent: an
 // OpenMP-threaded, batched localized-ETKF weight solver (cyclic Jacobi
 // eigensolver per K x K Gram matrix) and the observation bucketing /
-// neighborhood machinery used by the input pipeline. The TPU compute path
-// (XLA/Pallas) never calls this; it serves CPU-only deployments, host-side
+// neighborhood machinery used by the input pipeline. The device compute path
+// (XLA) never calls this; it serves CPU-only deployments, host-side
 // data preparation, and as an independent oracle for tests.
 //
 // Exported C ABI (bound via ctypes, tpu_assim/runtime/native.py):

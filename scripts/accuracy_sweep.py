@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """
-Measured accuracy budget of the f32 fused paths vs the float64 oracle
-(VERDICT r3 #7 / Missing #3): every BASELINE-config fused analysis compared
+Measured accuracy budget of the f32 fused paths vs the float64 oracle:
+every BASELINE-config fused analysis compared
 against a numpy float64 re-enactment of the exact per-column eigh solve
 (the reference's computation model, pytassim/interface/letkf.py:127-143 +
 core/etkf.py:57-77, which runs in f64 by default — interface/base.py:73).
@@ -11,16 +11,19 @@ Prints one line per config: max relative error over a grid-column sample
 the fused analysis itself always runs FULL, so blocking/selection effects
 are fully exercised; only the comparison is sampled).
 
-The committed bounds live in tests_tpu/test_accuracy_budget.py (chip) and
-docs/solvers.md (table). Run on the TPU; CPU works too (interpret mode).
+The committed bounds live in tests/test_accuracy_budget.py and
+docs/solvers.md (table). ``python scripts/accuracy_sweep.py --full`` runs
+the production shapes (on the GPU); without ``--full`` the large configs
+run at reduced extent.
 """
 
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -28,35 +31,8 @@ from bench import (  # noqa: E402
     build_workload,
     exact_nb,
     gc_weights_numpy,
+    oracle_columns,
 )
-
-
-def oracle_columns(state, perts, innov, weights_fn, cols, inf_factor=1.1):
-    """Exact f64 per-column eigh analysis at the given columns.
-
-    ``weights_fn(g) -> [o] taper weights`` defines the localization;
-    perts/innov are the R^{-1/2}-normalized obs-space arrays (f64).
-    """
-    k = state.shape[0]
-    reg = (k - 1) / inf_factor
-    mean = state.mean(axis=0)
-    sp = state - mean
-    out = np.empty((k, len(cols)))
-    for j, g in enumerate(cols):
-        w = weights_fn(g)
-        use = w > 1e-5
-        sw = np.sqrt(w[use])
-        z = perts[:, use] * sw
-        y = innov[use] * sw
-        gram = z @ z.T
-        evals, evects = np.linalg.eigh(gram)
-        evals = np.clip(evals, 0, None) + reg
-        einv = 1.0 / evals
-        cov = (evects * einv) @ evects.T
-        w_mean = cov @ (z @ y)
-        w_perts = (evects * np.sqrt((k - 1) * einv)) @ evects.T
-        out[:, j] = mean[g] + sp[:, g] @ (w_mean[:, None] + w_perts)
-    return out
 
 
 def normalized(state, obs_vals, obs_var, obs_idx):
@@ -72,24 +48,20 @@ def rel_err(fused, oracle, cols):
     return float(np.abs(f - oracle).max() / scale)
 
 
-def main(n_sample=512, seed=123, full=None):
-    """``full=None`` auto-sizes the large configs: full production shapes
-    on TPU (compiled kernels), reduced shapes on CPU (interpret mode is
-    ~100x slower per column; the kernels and their blocking/selection
-    structure are identical, only the extent shrinks)."""
+def main(n_sample=512, seed=123, full=False):
+    """``full=True`` runs the large configs at their production shapes;
+    ``False`` at a reduced extent (the selection and blocking structure
+    are identical, only the extent shrinks)."""
     import jax
 
     from tpu_assim.analysis import make_letkf_analysis
     from tpu_assim.ops.localization import GaspariCohn
-    from tpu_assim.ops.pallas.letkf import (
+    from tpu_assim.ops.window import (
         cheb_degree_for,
         max_in_support_1d,
         max_in_support_2d,
         required_obs_block_2d,
     )
-
-    if full is None:
-        full = jax.default_backend() == "tpu"
 
     rows = []
     rnd = np.random.RandomState(seed)
@@ -166,8 +138,7 @@ def main(n_sample=512, seed=123, full=None):
                      "max_rel_err": rel_err(fused2, oracle7, cols7)})
 
     # ---- 4-D smoother stack: 4 obs times, auto-degree regime -----------
-    # (round-4 VERDICT Missing #3: the ~40+-degree conditioning the docs
-    # flag was never swept; reference stacking: interface/base.py:222-241)
+    #
     n_t = 4
     oc_s = np.repeat(obs_coords, n_t, axis=0)        # sorted stays sorted
     oi_s = np.repeat(obs_idx, n_t)
@@ -195,8 +166,7 @@ def main(n_sample=512, seed=123, full=None):
                  "auto_cheb_degree": int(deg_s)})
 
     # ---- halo windowed local solve (bench config 3 shape) ---------------
-    # (round-4 VERDICT Weak #3: the pad-slot/wrapped-block arithmetic of
-    # parallel/halo.py had no measured error row)
+    # (the pad-slot/wrapped-block arithmetic of parallel/halo.py)
     from tpu_assim.parallel.halo import (
         _halo_max_in_support,
         halo_letkf_analysis,
@@ -215,7 +185,6 @@ def main(n_sample=512, seed=123, full=None):
     halo = halo_letkf_analysis(
         make_grid_mesh(n_dev), GaspariCohn((20.0,), dist_fn), max_obs=nb3,
         halo_width=halo_width_for(20.0, g3 / n_dev), inf_factor=1.1,
-        use_pallas=jax.default_backend() == "tpu",
         local_method="window", cheb_degree=12,
     )
     h_args = tuple(
@@ -319,4 +288,4 @@ def main(n_sample=512, seed=123, full=None):
 
 
 if __name__ == "__main__":
-    main()
+    main(full="--full" in sys.argv)

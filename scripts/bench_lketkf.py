@@ -1,6 +1,6 @@
-"""LKETKF dense vs fixed-size-neighborhood fast path on TPU.
+"""LKETKF dense vs fixed-size-neighborhood fast path.
 
-VERDICT r2 #4 'done' criterion: max_obs path beats the dense taper path
+Criterion: the max_obs path beats the dense taper path
 >= 5x at g = 1e5. Prints one JSON line per configuration.
 """
 import json

@@ -1,12 +1,11 @@
 #!/usr/bin/env python
 """
-Cycled-DA floor decomposition (round-4 VERDICT Weak #2): the bench
-config-6 cycle ran 0.249 ms against a claimed floor of ~0.212
-(0.152 analysis + ~0.06 forecast+glue). Measure each component with the
-same fori_loop two-point-slope discipline as bench.py:
+Cycled-DA decomposition of bench config 6 (forecast + analysis): measure
+each component with the same fori_loop two-point-slope discipline as
+bench.py:
 
-  A  analysis only (geometry-static fused1d, the config-2/6 kernel)
-  F  forecast only (fused one-kernel 4xRK4)
+  A  analysis only (geometry-static fused1d, the config-2/6 analysis)
+  F  forecast only (4 RK4 steps, a scan over ``integrate``)
   C  full cycle (make_cycle_step, geometry static)
   C0 cycle with n_int_steps=0 (analysis through the cycle plumbing —
      isolates obs-gather/normalization glue from the forecast)
@@ -27,11 +26,14 @@ from bench import _chain_time, build_workload, exact_nb
 
 
 def main():
+    from tpu_assim.device import require_gpu, setup_compile_cache
+
+    setup_compile_cache()
+    require_gpu()
     from tpu_assim.analysis import make_cycle_step, make_letkf_analysis
     from tpu_assim.models import Lorenz96, RK4Integrator
-    from tpu_assim.models.pallas_forecast import fused_rk4_steps
     from tpu_assim.ops.localization import GaspariCohn
-    from tpu_assim.ops.pallas.letkf import max_in_support_1d
+    from tpu_assim.ops.window import max_in_support_1d
 
     def dist_fn(gc, oi):
         return jnp.abs(oi[:, 1] - gc[1])[None, :]
@@ -54,7 +56,8 @@ def main():
 
     @jax.jit
     def step_f(acc, *a):
-        out = fused_rk4_steps(integ.model, a[0] + acc * 1e-9, 0.05, 4)
+        out = jax.lax.scan(lambda s, _: (integ.integrate(s), None),
+                           a[0] + acc * 1e-9, None, length=4)[0]
         return jnp.sum(out) * 1e-12
 
     cyc = make_cycle_step(integ, 4, loc, inf_factor=1.1, method="fused1d",
@@ -71,7 +74,7 @@ def main():
     def step_c0(acc, *a):
         return jnp.sum(cyc0(a[0] + acc * 1e-9, *a[1:])) * 1e-12
 
-    # throwaway first timing (fresh-process warm-up artifact, round-3 note)
+    # throwaway first timing (fresh-process warm-up)
     _chain_time(step_a, w, reps=40, r1=10, trials=1)
     t_a = _chain_time(step_a, w, reps=200, r1=40, trials=4)
     t_f = _chain_time(step_f, (w[0],), reps=400, r1=80, trials=4)

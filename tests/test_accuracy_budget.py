@@ -1,24 +1,24 @@
 """
-Accuracy-budget regression (VERDICT r3 #7): the f32 fused paths carry a
-MEASURED error bound vs the float64 per-column eigh oracle (the
-reference's default precision, pytassim/interface/base.py:73), committed
-in docs/solvers.md. CI fails if a kernel change regresses the bound.
+Accuracy-budget regression: the f32 fused paths carry a MEASURED error
+bound vs the float64 per-column eigh oracle (the reference's default
+precision, pytassim/interface/base.py:73), committed in docs/solvers.md.
+CI fails if a change regresses the bound.
 
-These run the interpret-mode kernels (CPU); the compiled-Mosaic bounds are
-asserted on the chip by tests_tpu/test_accuracy_budget.py via the same
-sweep (scripts/accuracy_sweep.py). Measured values sit at the f32
-input-representation floor (~3e-7); the committed bounds leave ~30x
-headroom for benign reassociation differences, NOT for truncation bugs.
+The same sweep (scripts/accuracy_sweep.py) runs compiled on the GPU through
+``chip_smoke.py``. Measured values sit at the f32 input-representation
+floor (~3e-7); the committed bounds leave ~30x headroom for benign
+reassociation differences, NOT for truncation bugs.
 """
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from scripts.accuracy_sweep import main as sweep_main  # noqa: E402
 

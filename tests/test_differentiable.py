@@ -242,8 +242,8 @@ class TestEighDegenerateSpectra:
 
 
 class TestFusedKernelVJP:
-    """Custom VJPs of the Pallas fast paths: Pallas forward, plain-XLA
-    Chebyshev reverse — gradients match the weight-based newton path and
+    """Gradients of the fused window paths (the GPU kernel's reverse rule
+    is the plain Chebyshev twin, which runs here) — gradients match the weight-based newton path and
     finite differences at f32 accuracy."""
 
     def _workload(self, rng, ens=8, g_pts=48, o=16, dtype="f8"):
@@ -324,10 +324,8 @@ class TestFusedKernelVJP:
 
 
 class TestFused2DVJP:
-    """Custom VJP of the 2-D window kernel: gradients through
-    method='fused2d' match the weight-based newton path (the block-building
-    prologue differentiates as plain XLA; the kernel carries the
-    Pallas-forward / Chebyshev-reverse custom VJP)."""
+    """Gradients through method='fused2d' match the weight-based newton
+    path (prologue and Chebyshev solve differentiate as plain XLA)."""
 
     def test_fused2d_grad_matches_newton(self, rng):
         from tpu_assim.analysis import make_letkf_analysis
@@ -371,10 +369,9 @@ class TestFused2DVJP:
 
 
 class TestRound5PathsDifferentiable:
-    """Round-5 fast paths keep the genre-5 guarantee: gradients flow
-    through the fused kernelized Chebyshev analysis (pure XLA — free) and
-    through the localized IEnKS smoother (Pallas SVD custom pullback +
-    fused-RK4 custom VJP)."""
+    """Gradients flow through the fused kernelized Chebyshev analysis and
+    through the localized IEnKS smoother (batched SVD pullback + scan
+    RK4)."""
 
     def test_lketkf_cheb_grad_through_kernel_params(self, rng):
         import jax

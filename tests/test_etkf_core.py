@@ -323,70 +323,8 @@ class TestWoodburySolver:
                                    atol=1e-9)
 
 
-class TestPallasFusedKernel:
-    """The fused Pallas solve+apply kernel (interpret mode on CPU) must
-    reproduce the weights-then-apply reference composition."""
-
-    def _reference(self, perts, obs, idx, w, state, inf):
-        from tpu_assim.ops.etkf import letkf_weights_nbh
-
-        wmat = letkf_weights_nbh(
-            jnp.asarray(perts), jnp.asarray(obs), jnp.asarray(idx),
-            jnp.asarray(w), inf, method="eigh",
-        )
-        mean = state.mean(0)
-        sp = state - mean
-        return mean + np.einsum("kg,gkm->mg", sp, np.asarray(wmat))
-
-    def test_fused_matches_reference(self, rng):
-        from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_fused
-
-        k, l, g, nb, inf = 12, 50, 37, 8, 1.1
-        perts = rng.randn(k, l).astype("f4")
-        obs = rng.randn(l).astype("f4")
-        idx = rng.randint(0, l, size=(g, nb)).astype("i4")
-        w = rng.rand(g, nb).astype("f4")
-        w[:, 6:] = 0.0
-        state = rng.randn(k, g).astype("f4")
-        ref = self._reference(perts, obs, idx, w, state, inf)
-        sw = np.sqrt(w)
-        zh = np.transpose(perts[:, idx], (1, 2, 0)) * sw[:, :, None]
-        yh = obs[idx] * sw
-        mean = state.mean(0)
-        sp = (state - mean).T
-        reg = jnp.asarray((k - 1) / inf, jnp.float32)
-        out = letkf_nbh_analysis_fused(
-            jnp.asarray(zh), jnp.asarray(yh), jnp.asarray(sp),
-            jnp.asarray(mean), reg, k, num_iters=14, tile=16,
-            interpret=True,
-        )
-        np.testing.assert_allclose(np.asarray(out).T, ref, atol=2e-4)
-
-    def test_fused_tile_padding(self, rng):
-        # g not divisible by tile: padded tail must not leak into output
-        from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_fused
-
-        k, g, nb = 6, 21, 4
-        zh = rng.randn(g, nb, k).astype("f4") * 0.3
-        yh = rng.randn(g, nb).astype("f4")
-        sp = rng.randn(g, k).astype("f4")
-        mean = rng.randn(g).astype("f4")
-        reg = jnp.asarray(5.0, jnp.float32)
-        big = letkf_nbh_analysis_fused(
-            jnp.asarray(zh), jnp.asarray(yh), jnp.asarray(sp),
-            jnp.asarray(mean), reg, k, num_iters=14, tile=8, interpret=True,
-        )
-        one = letkf_nbh_analysis_fused(
-            jnp.asarray(zh), jnp.asarray(yh), jnp.asarray(sp),
-            jnp.asarray(mean), reg, k, num_iters=14, tile=21, interpret=True,
-        )
-        assert big.shape == (g, k)
-        np.testing.assert_allclose(np.asarray(big), np.asarray(one),
-                                   atol=1e-5)
-
-
-class TestPallasChebKernel:
-    """The Chebyshev/Clenshaw lane-major kernel (interpret mode on CPU) must
+class TestChebSolve:
+    """The Chebyshev/Clenshaw solve over gathered neighbourhoods must
     reproduce the weights-then-apply reference composition."""
 
     def _reference(self, perts, obs, idx, w, state, inf):
@@ -401,7 +339,7 @@ class TestPallasChebKernel:
         return mean + np.einsum("kg,gkm->mg", sp, np.asarray(wmat))
 
     def test_cheb_matches_reference(self, rng):
-        from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_cheb
+        from tpu_assim.ops.window import letkf_nbh_analysis_cheb
 
         k, l, g, nb, inf = 12, 50, 37, 8, 1.1
         perts = rng.randn(k, l).astype("f4")
@@ -419,7 +357,7 @@ class TestPallasChebKernel:
         reg = jnp.asarray((k - 1) / inf, jnp.float32)
         out = letkf_nbh_analysis_cheb(
             jnp.asarray(zh), jnp.asarray(yh), jnp.asarray(sp),
-            jnp.asarray(mean), reg, k, degree=14, tile=16, interpret=True,
+            jnp.asarray(mean), reg, k, degree=14,
         )
         np.testing.assert_allclose(np.asarray(out), ref, atol=2e-4)
 
@@ -428,7 +366,7 @@ class TestPallasChebKernel:
         perturbations about the unchanged mean (reference empty-obs path,
         core/etkf.py:91-95) — exactly, despite the Chebyshev interval
         floor."""
-        from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_cheb
+        from tpu_assim.ops.window import letkf_nbh_analysis_cheb
 
         k, g, nb, inf = 8, 9, 5, 1.21
         zh = np.zeros((nb, k, g), dtype="f4")
@@ -439,7 +377,7 @@ class TestPallasChebKernel:
         reg = jnp.asarray((k - 1) / inf, jnp.float32)
         out = letkf_nbh_analysis_cheb(
             jnp.asarray(zh), jnp.asarray(yh), jnp.asarray(sp),
-            jnp.asarray(mean), reg, k, degree=10, tile=8, interpret=True,
+            jnp.asarray(mean), reg, k, degree=10,
         )
         np.testing.assert_allclose(
             np.asarray(out), mean + np.sqrt(inf) * sp, rtol=1e-5, atol=1e-6
@@ -506,19 +444,12 @@ class TestWindowSelection:
 
 
 class TestMonolithicWindowKernel:
-    """The monolithic 1-D-window kernel (selection + taper + gather + solve
-    + apply in one pallas_call) vs the exact eigh analysis."""
+    """The 1-D window analysis (selection + taper + gather + solve + apply)
+    vs the exact eigh analysis."""
 
     def test_matches_eigh_analysis(self, rng):
         from tpu_assim.analysis import make_letkf_analysis
         from tpu_assim.ops.localization import GaspariCohn
-        import tpu_assim.ops.pallas.letkf as pk
-
-        orig = pk.letkf_window_analysis_fused
-
-        def interp(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
 
         ens, g, o, radius = 12, 300, 48, 8.0
         state = rng.randn(ens, g).astype("f4")
@@ -535,19 +466,16 @@ class TestMonolithicWindowKernel:
         args = tuple(jnp.asarray(a) for a in (
             state, obs_vals, obs_var, obs_idx, grid_coords, obs_coords))
         exact = make_letkf_analysis(loc, 1.1, method="eigh")(*args)
-        import unittest.mock as mock
-
-        with mock.patch.object(pk, "letkf_window_analysis_fused", interp):
-            fused = make_letkf_analysis(
-                loc, 1.1, method="fused1d", max_obs=16
-            )(*args)
+        fused = make_letkf_analysis(
+            loc, 1.1, method="fused1d", max_obs=16
+        )(*args)
         rel = float(np.abs(np.asarray(fused) - np.asarray(exact)).max()
                     / np.abs(np.asarray(exact)).max())
         assert rel < 5e-5, rel
 
     def test_empty_window_columns_get_inflated_prior(self, rng):
         """Columns far from every obs degenerate to the inflated prior."""
-        import tpu_assim.ops.pallas.letkf as pk
+        import tpu_assim.ops.window as pk
 
         ens, g, o = 6, 40, 4
         state = rng.randn(ens, g).astype("f4")
@@ -562,7 +490,7 @@ class TestMonolithicWindowKernel:
         out = pk.letkf_window_analysis_fused(
             jnp.asarray(perts), jnp.asarray(innov), jnp.asarray(obs_x),
             jnp.asarray(grid_x), jnp.asarray(sp), jnp.asarray(m), reg,
-            2.0, ens, nb=4, degree=10, interpret=True,
+            2.0, ens, nb=4, degree=10,
         )
         np.testing.assert_allclose(
             np.asarray(out), m + np.sqrt(inf) * sp, rtol=1e-5, atol=1e-6

@@ -219,7 +219,7 @@ class TestKETKF:
                                             lambda: GaussKernel(2.0)])
     def test_lketkf_max_obs_equals_dense(self, state, obs, selection,
                                          kernel_cls):
-        """The fixed-size-neighborhood fast path (VERDICT r2 #4) equals the
+        """The fixed-size-neighborhood fast path equals the
         dense taper path at 1e-10 when max_obs covers every column's
         nonzero-taper obs (dot-product/distance kernels: zero-scaled ==
         dropped)."""
@@ -321,7 +321,7 @@ class TestIEnKS:
     @pytest.mark.parametrize("selection", ["topk", "window"])
     def test_localized_max_obs_equals_dense(self, state, single_obs,
                                             selection):
-        """The fixed-size-neighborhood fast path (VERDICT r2 #4) equals the
+        """The fixed-size-neighborhood fast path equals the
         dense taper path at 1e-10 (GC(r=6) support |dx| < 12 holds at most
         23 obs; max_obs=26 < o exercises real selection)."""
         loc = GaspariCohn((6.0,), dummy_distance)
@@ -540,7 +540,7 @@ class TestGridChunking:
 
 
 class TestKernelizedNewtonSolver:
-    """KETKF/LKETKF with method='newton' (matmul-only MXU solve on the
+    """KETKF/LKETKF with method='newton' (matmul-only solve on the
     PSD centered kernel Gram) equals the exact eigh solve."""
 
     def test_ketkf_newton_equals_eigh(self, state, obs):

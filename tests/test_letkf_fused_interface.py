@@ -8,7 +8,7 @@ materialize the [grid, k, k] weights — mathematically identical to the
 reference's estimate-then-apply contract
 (/root/reference/pytassim/interface/letkf.py:104-148 +
 /root/reference/pytassim/interface/base.py:256-278). The eigh path runs f64,
-the Pallas kernels f32, so parity is asserted at f32 accuracy.
+the fused paths f32, so parity is asserted at f32 accuracy.
 """
 
 import numpy as np
@@ -183,13 +183,11 @@ class TestFusedClassAPI:
 
 
 class TestExactnessGuards:
-    """The round-1 silent-exactness hazards now either auto-correct
-    (concrete inputs: exact obs_block / obs sorting) or fail loudly
-    (traced inputs: NaN poisoning)."""
+    """The silent-exactness hazards either fail loudly on the host
+    (concrete inputs) or NaN-poison (traced inputs)."""
 
     def _clustered_workload(self, rng, g=600, o=64):
-        """All obs clustered into one tile's coordinate span — breaks the
-        mean-density obs_block heuristic."""
+        """All obs clustered into the first 100 columns."""
         state = rng.randn(8, g)
         obs_x = np.sort(rng.uniform(0.0, 100.0, size=o))  # all in tile 0
         obs_idx = np.clip(np.rint(obs_x), 0, g - 1).astype("i4")
@@ -200,14 +198,12 @@ class TestExactnessGuards:
             state, obs_vals, obs_var, obs_idx, grid_coords, obs_x[:, None]))
 
     def test_clustered_obs_exact_via_required_obs_block(self, rng):
-        """Direct (concrete) calls compute the exact per-tile block: the
-        clustered workload that round 1 silently truncated now matches the
-        eigh path. max_obs must cover the densest column's in-support count
-        (26 here) — round 2 ran this at 24 and was silently one-obs
-        truncated, which the strict guard now rejects
-        (test_max_obs_overflow_raises_concrete)."""
+        """The clustered workload matches the eigh path once max_obs covers
+        the densest column's in-support count (26 here; 24 would truncate,
+        which the strict guard rejects — test_max_obs_overflow_raises_
+        concrete)."""
         from tpu_assim.analysis import make_letkf_analysis
-        from tpu_assim.ops.pallas.letkf import max_in_support_1d
+        from tpu_assim.ops.window import max_in_support_1d
 
         args = self._clustered_workload(rng)
         loc = GaspariCohn((8.0,), coord_dist)
@@ -220,14 +216,12 @@ class TestExactnessGuards:
                     / np.abs(np.asarray(exact)).max())
         assert np.isfinite(np.asarray(fused)).all()
         # 2e-4: the f32 floor at this clustered conditioning (the same
-        # value at degree 16 and 24); blocked-vs-full-table exactness is
-        # asserted separately (test_required_obs_block_covers_kernel_windows)
+        # value at degree 16 and 24)
         assert rel < 2e-4, rel
 
     def test_max_obs_overflow_raises_concrete(self, rng):
         """A clustered workload with too-small max_obs fails loudly on the
-        concrete path instead of returning a plausible wrong analysis
-        (VERDICT r2 #3)."""
+        concrete path instead of returning a plausible wrong analysis."""
         from tpu_assim.analysis import make_letkf_analysis
 
         args = self._clustered_workload(rng)
@@ -238,10 +232,10 @@ class TestExactnessGuards:
             fn(*args)
 
     def test_max_obs_overflow_poisons_traced(self, rng):
-        """The same overflow under an outer jit (traced coords, explicit
-        obs_block) NaN-poisons exactly the overflowing columns."""
-        from tpu_assim.ops.pallas.letkf import (
-            letkf_window_analysis_fused, required_obs_block)
+        """The same overflow under an outer jit (traced coords) NaN-poisons
+        exactly the overflowing columns."""
+        from tpu_assim.ops.window import (
+            letkf_window_analysis_fused, max_in_support_1d)
 
         args = self._clustered_workload(rng)
         state, obs_vals, obs_var, obs_idx, grid_coords, obs_coords = args
@@ -250,16 +244,18 @@ class TestExactnessGuards:
         innov = obs_vals - state[:, obs_idx].mean(0)
         mean = state.mean(0)
         sp = state - mean
-        blk = required_obs_block(
-            np.asarray(obs_coords)[:, 0], np.asarray(grid_coords)[:, 0],
-            24, radius=8.0)
         out = jax.jit(lambda *a: letkf_window_analysis_fused(
-            *a, 8.0, k, nb=24, obs_block=int(blk), interpret=True))(
+            *a, 8.0, k, nb=24))(
             perts, innov, obs_coords[:, 0], grid_coords[:, 0], sp, mean,
             jnp.asarray((k - 1) / 1.1, jnp.float32))
         out = np.asarray(out)
-        assert np.isnan(out).any(), "overflowing columns must poison"
-        assert np.isfinite(out[:, 300:]).all(), "obs-free columns stay clean"
+        ox = np.asarray(obs_coords)[:, 0]
+        over = np.array([
+            max_in_support_1d(ox, np.asarray(grid_coords)[c:c + 1, 0], 8.0)
+            > 24 for c in range(out.shape[1])])
+        assert over.any()
+        assert np.isnan(out[:, over]).all(), "overflowing columns poison"
+        assert np.isfinite(out[:, ~over]).all(), "other columns stay clean"
 
     def test_max_obs_strict_false_truncates_finite(self, rng):
         """strict=False restores the bounded-truncation behavior: finite
@@ -310,9 +306,9 @@ class TestExactnessGuards:
         assert rel < 2e-4, rel
 
     def test_overflowing_block_poisons_not_silent(self, rng):
-        """A hand-forced too-small obs_block NaN-poisons the overflowing
-        tiles instead of silently dropping observations."""
-        from tpu_assim.ops.pallas.letkf import letkf_window_analysis_fused
+        """A direct call with a too-small window NaN-poisons the columns
+        that would drop in-support observations, never silently."""
+        from tpu_assim.ops.window import letkf_window_analysis_fused
 
         args = self._clustered_workload(rng)
         state, obs_vals, obs_var, obs_idx, grid_coords, obs_coords = args
@@ -324,11 +320,11 @@ class TestExactnessGuards:
         out = letkf_window_analysis_fused(
             perts, innov, obs_coords[:, 0], grid_coords[:, 0], sp, mean,
             jnp.asarray((k - 1) / 1.1, jnp.float32), 8.0, k,
-            nb=24, obs_block=56, interpret=True,
+            nb=8,
         )
         out = np.asarray(out)
-        assert np.isnan(out[:, :128]).all()      # overflowing tile 0
-        assert np.isfinite(out[:, 256:]).all()   # obs-free tiles fine
+        assert np.isnan(out[:, 20:80]).all()     # inside the obs cluster
+        assert np.isfinite(out[:, 256:]).all()   # obs-free columns fine
 
     def test_unsorted_obs_raises_on_concrete_call(self, rng):
         from tpu_assim.analysis import make_letkf_analysis
@@ -353,41 +349,37 @@ class TestExactnessGuards:
         _, w = neighborhood_select_window(loc, gi, oi, 8)
         assert np.isnan(np.asarray(w)).all()
 
-    def test_required_obs_block_covers_kernel_windows(self, rng):
-        """Property: blocked output == full-table output at the computed
-        width, for adversarial obs layouts."""
-        from tpu_assim.ops.pallas.letkf import (
-            letkf_window_analysis_fused, required_obs_block)
+    @pytest.mark.parametrize("trial", range(3))
+    def test_adversarial_layouts_match_eigh(self, rng, trial):
+        """Clustered-head plus spread-tail obs layouts: the window analysis
+        with nb at the exact in-support maximum matches the eigh path."""
+        from tpu_assim.analysis import make_letkf_analysis
+        from tpu_assim.ops.window import max_in_support_1d
 
-        for trial in range(3):
-            g, o, k = 300, 40, 6
-            obs_x = np.sort(np.concatenate([
-                rng.uniform(0, 30, size=o // 2),      # clustered head
-                rng.uniform(0, g, size=o - o // 2),   # spread tail
-            ]))
-            grid_x = np.arange(g, dtype="f8")
-            perts = rng.randn(k, o)
-            innov = rng.randn(o)
-            state = rng.randn(k, g)
-            mean = state.mean(0)
-            sp = state - mean
-            reg = jnp.asarray((k - 1) / 1.1, jnp.float32)
-            common = (jnp.asarray(perts), jnp.asarray(innov),
-                      jnp.asarray(obs_x), jnp.asarray(grid_x),
-                      jnp.asarray(sp), jnp.asarray(mean), reg, 6.0, k)
-            full = letkf_window_analysis_fused(
-                *common, nb=12, obs_block=o, interpret=True)
-            blk = required_obs_block(obs_x, grid_x, 12)
-            blocked = letkf_window_analysis_fused(
-                *common, nb=12, obs_block=blk, interpret=True)
-            np.testing.assert_allclose(np.asarray(blocked),
-                                       np.asarray(full),
-                                       rtol=1e-6, atol=1e-6)
+        rs = np.random.RandomState(100 + trial)
+        g, o = 300, 40
+        obs_x = np.sort(np.concatenate([
+            rs.uniform(0, 30, size=o // 2),       # clustered head
+            rs.uniform(0, g, size=o - o // 2),    # spread tail
+        ]))
+        obs_idx = np.clip(np.rint(obs_x), 0, g - 1).astype("i4")
+        grid_coords = np.arange(g, dtype=np.float64)[:, None]
+        args = tuple(jnp.asarray(a) for a in (
+            rs.randn(6, g), rs.randn(o), np.ones(o), obs_idx, grid_coords,
+            obs_x[:, None]))
+        loc = GaspariCohn((6.0,), coord_dist)
+        nb = max_in_support_1d(obs_x, grid_coords[:, 0], 6.0)
+        exact = make_letkf_analysis(loc, 1.1, method="eigh")(*args)
+        fused = make_letkf_analysis(loc, 1.1, method="fused1d", max_obs=nb,
+                                    cheb_degree=32)(*args)
+        rel = float(np.abs(np.asarray(fused) - np.asarray(exact)).max()
+                    / np.abs(np.asarray(exact)).max())
+        assert rel < 2e-4, rel
 
 
 class TestStaticGeometry:
     """geometry=(obs_idx, grid_coords, obs_coords) binds the obs network
-    as XLA constants (the cycled-DA prologue amortization, VERDICT r3 #6):
+    as XLA constants (the cycled-DA prologue amortization):
     the bound function must be bitwise-identical to the unbound path and
     run the same host-side hardening at build time."""
 
@@ -460,7 +452,7 @@ class TestStripLETKF2D:
     def test_strips_match_fused2d_and_eigh(self, rng):
         from tpu_assim.analysis import make_letkf_analysis, \
             make_strip_letkf_2d
-        from tpu_assim.ops.pallas.letkf import max_in_support_2d
+        from tpu_assim.ops.window import max_in_support_2d
 
         w = self._workload(rng)
         state, obs_vals, obs_var, cells, grid_xy, obs_xy = w
@@ -561,7 +553,7 @@ class TestCorrelatedRFastPaths:
 
 
 class TestFused3DLocalization:
-    """>= 3-D localization through the fused 2-D kernel (VERDICT r2 #5):
+    """>= 3-D localization through the fused 2-D kernel:
     coordinate dims beyond (x, y) — the COSMO (rlat, rlon, vgrid) case —
     contribute product taper factors; band/window selection stays on
     (y, x). Parity vs the eigh path at f32 accuracy."""
@@ -676,7 +668,7 @@ class TestMonolithic2DKernel:
     @pytest.mark.parametrize("radii", [(4.0, 4.0), (5.0, 3.0)])
     def test_matches_eigh_2d(self, rng, radii):
         from tpu_assim.analysis import make_letkf_analysis
-        from tpu_assim.ops.pallas.letkf import (
+        from tpu_assim.ops.window import (
             letkf_window_analysis_fused_2d, required_obs_block_2d)
 
         rx, ry = radii
@@ -704,7 +696,7 @@ class TestMonolithic2DKernel:
             jnp.asarray(perts), jnp.asarray(innov), jnp.asarray(obs_xy),
             jnp.asarray(grid_xy), jnp.asarray(sp), jnp.asarray(mean_s),
             jnp.asarray((k - 1) / 1.1, jnp.float32), rx, ry, k,
-            obs_block=blk, nb=64, degree=24, interpret=True,
+            obs_block=blk, nb=64, degree=24, 
         )
         rel = float(np.abs(np.asarray(out) - np.asarray(exact)).max()
                     / np.abs(np.asarray(exact)).max())
@@ -712,7 +704,7 @@ class TestMonolithic2DKernel:
         assert rel < 2e-4, rel
 
     def test_band_overflow_poisons(self, rng):
-        from tpu_assim.ops.pallas.letkf import letkf_window_analysis_fused_2d
+        from tpu_assim.ops.window import letkf_window_analysis_fused_2d
 
         w = self._workload_2d(rng, o=80)
         state, obs_vals, obs_var, obs_idx, grid_xy, obs_xy = w
@@ -724,16 +716,15 @@ class TestMonolithic2DKernel:
             jnp.asarray(obs_xy), jnp.asarray(grid_xy),
             jnp.asarray(state - state.mean(0)), jnp.asarray(state.mean(0)),
             jnp.asarray((k - 1) / 1.1, jnp.float32), 4.0, 4.0, k,
-            obs_block=8, nb=8, interpret=True,  # far too small
+            obs_block=8, nb=8, # far too small
         )
         assert np.isnan(np.asarray(out)).any()
 
     def test_band_overflow_below_128_poisons(self, rng):
-        """Round-4 advisor regression: band population ABOVE obs_block but
-        below the 128-rounded DMA width must NaN-poison, not silently
-        truncate (the old guard compared against ceil128(obs_block), while
-        b_rel's clip drops anything beyond the o_b+8 slice)."""
-        from tpu_assim.ops.pallas.letkf import (
+        """Band population above obs_block (but below the padded widths a
+        blocked layout might round up to) must NaN-poison, not silently
+        truncate."""
+        from tpu_assim.ops.window import (
             letkf_window_analysis_fused_2d, required_obs_block_2d)
 
         w = self._workload_2d(rng, o=80)
@@ -750,12 +741,12 @@ class TestMonolithic2DKernel:
             jnp.asarray((k - 1) / 1.1, jnp.float32), 4.0, 4.0, k,
             # nb=full so the strict x-window guard cannot fire — only the
             # band-capacity guard distinguishes pass from silent truncation
-            obs_block=16, nb=80, degree=12, interpret=True,
+            obs_block=16, nb=80, degree=12, 
         )
         assert np.isnan(np.asarray(out)).any()
 
     def test_obs_block_required(self, rng):
-        from tpu_assim.ops.pallas.letkf import letkf_window_analysis_fused_2d
+        from tpu_assim.ops.window import letkf_window_analysis_fused_2d
 
         with pytest.raises(ValueError, match="obs_block"):
             letkf_window_analysis_fused_2d(
@@ -883,7 +874,7 @@ class TestFused2DTraceable:
     def test_fused2d_inside_scan(self, rng):
         import jax
         from tpu_assim.analysis import make_letkf_analysis
-        from tpu_assim.ops.pallas.letkf import required_obs_block_2d
+        from tpu_assim.ops.window import required_obs_block_2d
 
         nr = nc = 16
         g = nr * nc
@@ -931,7 +922,7 @@ class TestSmootherConditioning:
     """4-D (stacked obs times) conditioning: the auto Chebyshev degree
     must engage its high-degree regime (~40+, docs/solvers.md) and the
     fused result must stay at f32 accuracy vs the eigh oracle — the
-    round-4 VERDICT's missing smoother coverage."""
+    smoother coverage."""
 
     def test_auto_degree_engages_and_matches_eigh(self, rng, monkeypatch):
         state = make_state(rng, n_var=2, n_time=3, n_ens=10, n_grid=60)
@@ -957,108 +948,14 @@ class TestSmootherConditioning:
 
 
 class TestDMABlockEdges:
-    """Round-4 VERDICT Weak #6: the DMA block paths' exactness at their
-    edges. Obs pinned EXACTLY at window/taper-support boundaries, block
-    offsets forced to non-multiples of 8 (so the 8-aligned DMA offset
-    rounding and its +8 headroom are genuinely exercised), dma vs gather
-    compared BITWISE."""
-
-    def _workload_1d(self, rng, g=512, r=12.0):
-        sup = 2.0 * r
-        obs = []
-        for tb in (0.0, 128.0, 256.0, 384.0, 511.0):
-            # support edges of tile boundaries: exactly at the cutoff
-            # (weight exactly 0, never selected) and just inside
-            obs += [tb - sup, tb - sup + 1e-3, tb + sup - 1e-3, tb + sup]
-        # odd cluster sizes force odd searchsorted offsets (non-8-aligned)
-        for c in (63.0, 191.0, 320.0):
-            obs += list(c + rng.uniform(-1.0, 1.0, size=7))
-        obs += list(rng.uniform(0.0, g - 1.0, size=37))
-        obs_x = np.sort(np.clip(np.asarray(obs), 0.0, g - 1.0))
-        o = len(obs_x)
-        k = 8
-        state = rng.normal(size=(k, g))
-        perts = rng.normal(size=(k, o))
-        innov = rng.normal(size=o)
-        return state, perts, innov, obs_x, np.arange(g, dtype="f8"), r
-
-    def test_1d_dma_equals_gather_bitwise(self, rng):
-        from tpu_assim.ops.pallas.letkf import (
-            letkf_window_analysis_fused,
-            max_in_support_1d,
-            required_obs_block,
-        )
-
-        state, perts, innov, obs_x, grid_x, r = self._workload_1d(rng)
-        k = state.shape[0]
-        nb = max(max_in_support_1d(obs_x, grid_x, r), 4)
-        blk = required_obs_block(obs_x, grid_x, nb, radius=r)
-        mean = state.mean(0)
-        sp = state - mean
-        args = (jnp.asarray(perts, jnp.float32),
-                jnp.asarray(innov, jnp.float32),
-                jnp.asarray(obs_x, jnp.float32),
-                jnp.asarray(grid_x, jnp.float32),
-                jnp.asarray(sp, jnp.float32),
-                jnp.asarray(mean, jnp.float32),
-                jnp.asarray(7.0 / 1.1, jnp.float32))
-        kw = dict(radius=r, ens_size=k, nb=nb, degree=10, obs_block=blk,
-                  interpret=True)
-        out_d = letkf_window_analysis_fused(*args, block_mode="dma", **kw)
-        out_g = letkf_window_analysis_fused(*args, block_mode="gather",
-                                            **kw)
-        assert np.isfinite(np.asarray(out_d)).all()
-        np.testing.assert_array_equal(np.asarray(out_d), np.asarray(out_g))
-
-    def test_1d_dma_offsets_not_8_aligned(self, rng):
-        """The workload genuinely produces non-8-aligned block offsets
-        (otherwise the test would not exercise the offset rounding)."""
-        from tpu_assim.ops.localization import taper_support_z
-
-        state, perts, innov, obs_x, grid_x, r = self._workload_1d(rng)
-        sup = taper_support_z("gc2", 1e-5) * r
-        tile_min = grid_x.reshape(-1, 128).min(axis=1)
-        offs = np.searchsorted(obs_x, tile_min - sup, side="right")
-        assert (offs % 8 != 0).any(), offs
-
-    def test_1d_dma_fallback_is_loud(self, rng, caplog):
-        """ens_size + 2 > 126 cannot take the DMA table layout — the
-        fallback to gather blocks must warn, not silently switch."""
-        import logging
-
-        from tpu_assim.ops.pallas.letkf import (
-            letkf_window_analysis_fused, required_obs_block)
-
-        g, o, k = 256, 64, 126
-        obs_x = np.sort(rng.uniform(0, g - 1, size=o))
-        grid_x = np.arange(g, dtype="f8")
-        blk = required_obs_block(obs_x, grid_x, 16, radius=8.0)
-        assert blk < o  # genuinely blocked (the whole-table path would
-        # never consult block_mode)
-        state = rng.normal(size=(k, g))
-        mean = state.mean(0)
-        with caplog.at_level(logging.WARNING,
-                             logger="tpu_assim.ops.pallas.letkf"):
-            out = letkf_window_analysis_fused(
-                jnp.asarray(rng.normal(size=(k, o)), jnp.float32),
-                jnp.asarray(rng.normal(size=o), jnp.float32),
-                jnp.asarray(obs_x, jnp.float32),
-                jnp.asarray(grid_x, jnp.float32),
-                jnp.asarray(state - mean, jnp.float32),
-                jnp.asarray(mean, jnp.float32),
-                jnp.asarray((k - 1) / 1.1, jnp.float32),
-                radius=8.0, ens_size=k, nb=16, degree=8,
-                obs_block=int(blk),
-                block_mode="dma", strict=False, interpret=True,
-            )
-        assert np.isfinite(np.asarray(out)).all()
-        assert any("falling back" in rec.message for rec in caplog.records)
+    """The banded 2-D block path's exactness at its edges: obs pinned
+    EXACTLY at band boundaries, banded vs whole-table compared BITWISE."""
 
     def test_2d_banded_equals_whole_table_bitwise(self, rng):
-        """The 2-D DMA banding path vs the whole-table path (obs_block >=
+        """The 2-D banded path vs the whole-table path (obs_block >=
         o): identical selection, bitwise-equal analysis — with obs pinned
         exactly at band boundaries and odd band offsets."""
-        from tpu_assim.ops.pallas.letkf import (
+        from tpu_assim.ops.window import (
             letkf_window_analysis_fused_2d,
             max_in_support_2d,
             required_obs_block_2d,
@@ -1098,8 +995,7 @@ class TestDMABlockEdges:
                 jnp.asarray(sp, jnp.float32),
                 jnp.asarray(mean, jnp.float32),
                 jnp.asarray((k - 1) / 1.1, jnp.float32))
-        kw = dict(radius_x=rx, radius_y=ry, ens_size=k, nb=nb, degree=10,
-                  interpret=True)
+        kw = dict(radius_x=rx, radius_y=ry, ens_size=k, nb=nb, degree=10)
         banded = letkf_window_analysis_fused_2d(*args, obs_block=int(blk),
                                                 **kw)
         whole = letkf_window_analysis_fused_2d(*args, obs_block=o, **kw)
@@ -1114,7 +1010,7 @@ class TestDMABlockEdges:
 
 class TestFused2DClassStrips:
     """LETKF(method='fused2d') auto-splits wide grids into x-strips (the
-    production path, round-4 VERDICT #5): class-level strips == direct
+    production path): class-level strips == direct
     fused2d == eigh, and the auto rule engages on wide grids only."""
 
     def _wide_workload(self, rng, nr=8, nc=520, n_ens=8, n_obs=160):

@@ -100,218 +100,80 @@ def test_inv_sqrt_newton_matches_eigh(rng):
     np.testing.assert_allclose(sq, ref_inv, atol=1e-8)
 
 
-class TestJacobiSVD:
-    """Pallas one-sided (Hestenes) Jacobi batched SVD (interpret mode) vs
-    jnp.linalg.svd — the TPU replacement for the reference's LAPACK call
-    in the IEnKS inner steps (pytassim/core/utils.py:122, core/ienks.py:
-    58-69, 92-106). Column signs are arbitrary in both; parity is checked
-    on singular values, recomposition, and orthogonality."""
-
-    def test_f64_parity(self, rng):
-        from tpu_assim.ops.pallas.svd import svd_jacobi
-
-        for k, b in [(8, 5), (40, 3), (13, 4)]:
-            a = jnp.asarray(rng.randn(b, k, k))
-            u, s, v = svd_jacobi(a, tile=8, interpret=True)
-            _, ref_s, _ = jnp.linalg.svd(a)
-            np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s),
-                                       rtol=1e-9, atol=1e-9)
-            assert bool(jnp.all(jnp.diff(s, axis=-1) <= 1e-12))  # descending
-            rec = jnp.einsum("bik,bk,bjk->bij", u, s, v)
-            np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                       rtol=1e-10, atol=1e-10)
-            eye = np.broadcast_to(np.eye(k), (b, k, k))
-            for q in (u, v):
-                orth = jnp.einsum("bki,bkj->bij", q, q)
-                np.testing.assert_allclose(np.asarray(orth), eye,
-                                           atol=1e-10)
-
-    def test_multi_batch_dims(self, rng):
-        from tpu_assim.ops.pallas.svd import svd_jacobi
-
-        a = jnp.asarray(rng.randn(2, 3, 6, 6))
-        u, s, v = svd_jacobi(a, tile=8, interpret=True)
-        assert u.shape == (2, 3, 6, 6) and s.shape == (2, 3, 6)
-        rec = jnp.einsum("...ik,...k,...jk->...ij", u, s, v)
-        np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                   atol=1e-10)
-
-    def test_near_singular(self, rng):
-        """Tiny-but-nonzero singular values keep full accuracy (Jacobi's
-        high relative accuracy); the IEnKS consumers invert s, so this is
-        the hard edge of their domain."""
-        from tpu_assim.ops.pallas.svd import svd_jacobi
-
-        k, b = 8, 3
-        q1, _ = np.linalg.qr(rng.randn(k, k))
-        q2, _ = np.linalg.qr(rng.randn(k, k))
-        sv = np.geomspace(1.0, 1e-8, k)
-        a = jnp.asarray(np.stack([q1 * 1.0, q1 * -1.0, q2]) @ np.diag(sv)
-                        @ np.stack([q2.T, q1.T, q1.T]))
-        u, s, v = svd_jacobi(a, tile=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(s),
-                                   np.broadcast_to(sv, (b, k)),
-                                   rtol=1e-9)
-        rec = jnp.einsum("bik,bk,bjk->bij", u, s, v)
-        np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                   atol=1e-12)
-
-    def test_grad_matches_xla_svd(self, rng):
-        """The custom pullback (expressed in the forward's own u, s, v)
-        equals XLA's svd VJP on sign-invariant compositions — the way the
-        IEnKS steps consume the factors (rev_svd recompositions)."""
-        import jax
-
-        from tpu_assim.ops.linalg import _svd_jacobi_diff
-
-        k, b = 10, 4
-        a = jnp.asarray(rng.randn(b, k, k))
-        c1 = jnp.asarray(rng.randn(b, k, k))
-        c2 = jnp.asarray(rng.randn(b, k))
-
-        def parts(u, s, v):
-            m1 = jnp.einsum("bik,bk,bjk->bij", u, 1.0 / s, v)
-            return jnp.sum(m1 * c1) + jnp.sum(jnp.log(s) * c2)
-
-        def loss_mine(x):
-            return parts(*_svd_jacobi_diff(x))
-
-        def loss_ref(x):
-            u, s, vh = jnp.linalg.svd(x, full_matrices=False)
-            return parts(u, s, jnp.swapaxes(vh, -1, -2))
-
-        g1 = jax.grad(loss_mine)(a)
-        g2 = jax.grad(loss_ref)(a)
-        np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
-                                   rtol=1e-8, atol=1e-8)
+def _spectrum_case(rng, kind, k, batch):
+    """Symmetric PSD test matrices of the three shapes the analyses feed
+    eigh: full rank, rank deficient (a localized Gram of few obs) and a
+    degenerate cluster."""
+    if kind == "spd":
+        z = rng.randn(*batch, k, k)
+        return np.einsum("...ki,...mi->...km", z, z) / k + 0.5 * np.eye(k)
+    if kind == "rank_deficient":
+        z = rng.randn(*batch, k, 3)
+        return np.einsum("...ki,...mi->...km", z, z)
+    q = np.linalg.qr(rng.randn(*batch, k, k))[0]
+    evals = np.concatenate([np.full(k - 4, 2.5), np.linspace(0.1, 9.0, 4)])
+    return np.einsum("...ik,k,...jk->...ij", q, evals, q)
 
 
-class TestEighViaSVD:
-    """eigh_svd_jacobi: symmetric eigendecomposition through the one-sided
-    SVD kernel (evecs = V, evals = s * sign(diag(U^T V))) — the default
-    TPU eigh_psd dispatch since round 5 (115 ms vs 212 ms two-sided at
-    [10^4, 40, 40] f32; scripts/validate_eigh_svd.py)."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["spd", "rank_deficient", "degenerate"])
+@pytest.mark.parametrize("k", [8, 40, 100])
+def test_eigh_psd_matches_numpy_f64(rng, k, kind, dtype):
+    """eigh_psd against f64 numpy.linalg.eigh at the ensemble sizes the
+    benchmark uses, with two leading batch dims. Eigenvector signs and the
+    basis inside a degenerate cluster are arbitrary, so vectors are checked
+    through recomposition and orthogonality."""
+    from tpu_assim.ops.linalg import eigh_psd
 
-    def _check(self, a, atol=1e-9):
-        from tpu_assim.ops.pallas.svd import eigh_svd_jacobi
-
-        ev, evec = eigh_svd_jacobi(jnp.asarray(a), tile=8, interpret=True)
-        ref_ev, _ = jnp.linalg.eigh(jnp.asarray(a))
-        np.testing.assert_allclose(np.asarray(ev), np.asarray(ref_ev),
-                                   rtol=atol, atol=atol)
-        rec = jnp.einsum("bik,bk,bjk->bij", evec, ev, evec)
-        np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                   atol=atol)
-        k = a.shape[-1]
-        orth = jnp.einsum("bki,bkj->bij", evec, evec)
-        np.testing.assert_allclose(
-            np.asarray(orth), np.broadcast_to(np.eye(k), orth.shape),
-            atol=atol,
-        )
-
-    def test_spd(self, rng):
-        z = rng.randn(5, 12, 8)
-        self._check(np.einsum("bki,bmi->bkm", z, z) + 2 * np.eye(12))
-
-    def test_rank_deficient(self, rng):
-        z = rng.randn(4, 10, 3)
-        self._check(np.einsum("bki,bmi->bkm", z, z))
-
-    def test_degenerate_cluster(self, rng):
-        q = np.linalg.qr(rng.randn(3, 10, 10))[0]
-        evals = np.concatenate([np.full(6, 2.5), np.linspace(0.1, 9, 4)])
-        self._check(np.einsum("bik,k,bjk->bij", q, evals, q))
-
-    def test_indefinite_separated_magnitudes(self, rng):
-        """Negative eigenvalues recover their sign via diag(U^T V) as long
-        as no +/- magnitude tie exists (the documented caveat)."""
-        evals = np.array([-3.0, -1.2, 0.4, 2.0, 5.0, 7.7])
-        q = np.linalg.qr(rng.randn(4, 6, 6))[0]
-        self._check(np.einsum("bik,k,bjk->bij", q, evals, q))
+    a = _spectrum_case(rng, kind, k, (2, 3))
+    ev, evec = eigh_psd(jnp.asarray(a.astype(dtype)))
+    tol = 2e-5 if dtype == "float32" else 1e-10
+    scale = np.abs(a).max()
+    ref_ev = np.linalg.eigh(a)[0]
+    np.testing.assert_allclose(np.asarray(ev, np.float64), ref_ev,
+                               atol=tol * scale * np.sqrt(k))
+    ev64 = np.asarray(ev, np.float64)
+    vec64 = np.asarray(evec, np.float64)
+    rec = np.einsum("...ik,...k,...jk->...ij", vec64, ev64, vec64)
+    np.testing.assert_allclose(rec, a, atol=tol * scale * np.sqrt(k))
+    orth = np.einsum("...ki,...kj->...ij", vec64, vec64)
+    np.testing.assert_allclose(orth, np.broadcast_to(np.eye(k), orth.shape),
+                               atol=tol * np.sqrt(k))
 
 
-class TestJacobiEigh:
-    """Pallas parallel-Jacobi batched symeig (interpret mode) vs
-    jnp.linalg.eigh — the TPU replacement for the reference's LAPACK call
-    (pytassim/core/utils.py:57). 1e-10-level parity in f64; the eigenvector
-    contract is checked by recomposition and orthogonality (column signs are
-    arbitrary in both)."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k", [8, 40, 100])
+def test_svd_matches_numpy_f64(rng, k, dtype):
+    """svd (torch convention: ``v`` not ``v^T``) against f64 numpy on square
+    batches with two leading batch dims — the IEnKS inner step's shape."""
+    a = rng.randn(2, 3, k, k)
+    u, s, v = svd(jnp.asarray(a.astype(dtype)))
+    assert u.shape == v.shape == (2, 3, k, k) and s.shape == (2, 3, k)
+    tol = 2e-5 if dtype == "float32" else 1e-10
+    ref_s = np.linalg.svd(a, compute_uv=False)
+    scale = ref_s.max()
+    np.testing.assert_allclose(np.asarray(s, np.float64), ref_s,
+                               atol=tol * scale * np.sqrt(k))
+    rec = np.asarray(rev_svd(u, s, v), np.float64)
+    np.testing.assert_allclose(rec, a, atol=tol * scale * np.sqrt(k))
 
-    def test_f64_parity(self, rng):
-        from tpu_assim.ops.pallas.jacobi import eigh_jacobi
 
-        for k, b in [(8, 5), (40, 3), (13, 4)]:
-            z = rng.randn(b, k, max(k // 2, 3))
-            a = jnp.asarray(np.einsum("bki,bmi->bkm", z, z)
-                            + np.eye(k) * 2.0)
-            ev, evec = eigh_jacobi(a, sweeps=10, tile=8, interpret=True)
-            ref_ev, _ = jnp.linalg.eigh(a)
-            np.testing.assert_allclose(np.asarray(ev), np.asarray(ref_ev),
-                                       rtol=1e-10, atol=1e-10)
-            rec = jnp.einsum("bik,bk,bjk->bij", evec, ev, evec)
-            np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                       rtol=1e-10, atol=1e-10)
-            orth = jnp.einsum("bki,bkj->bij", evec, evec)
-            np.testing.assert_allclose(
-                np.asarray(orth), np.broadcast_to(np.eye(k), (b, k, k)),
-                atol=1e-10,
-            )
+def test_svd_grad_of_invariant_composition(rng):
+    """Gradients through svd of a sign-invariant composition (the way the
+    IEnKS steps consume the factors) match finite differences."""
+    import jax
 
-    def test_degenerate_spectrum(self, rng):
-        """Rank-deficient Grams (the localized-solve case): repeated zero
-        and clustered eigenvalues converge cleanly (the symmetrized-pair
-        rotation keeps G orthogonal when entries decay to the asymmetry
-        level)."""
-        from tpu_assim.ops.pallas.jacobi import eigh_jacobi
+    k = 6
+    a = jnp.asarray(rng.randn(2, k, k) + 3.0 * np.eye(k))
+    c = jnp.asarray(rng.randn(2, k, k))
 
-        k, b, r = 10, 4, 3
-        z = rng.randn(b, k, r)
-        a = jnp.asarray(np.einsum("bki,bmi->bkm", z, z))  # rank 3, 7 zeros
-        ev, evec = eigh_jacobi(a, sweeps=12, tile=8, interpret=True)
-        ref_ev, _ = jnp.linalg.eigh(a)
-        np.testing.assert_allclose(np.asarray(ev), np.asarray(ref_ev),
-                                   rtol=1e-9, atol=1e-9)
-        rec = jnp.einsum("bik,bk,bjk->bij", evec, ev, evec)
-        np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                   atol=1e-9)
+    def loss(x):
+        u, s, v = svd(x)
+        return jnp.sum(rev_svd(u, 1.0 / s, v) * c) + jnp.sum(jnp.log(s))
 
-    def test_early_exit_checks_all_offdiagonals(self, rng):
-        """Round-4 advisor regression: a matrix whose current-seating pair
-        entries (2i, 2i+1) are all zero but with off-diagonal mass
-        elsewhere must NOT exit before the first sweep. diag(1,2,3,4)
-        with A[0,2]=0.5 used to return its diagonal unchanged."""
-        from tpu_assim.ops.pallas.jacobi import eigh_jacobi
-
-        a = np.diag([1.0, 2.0, 3.0, 4.0])
-        a[0, 2] = a[2, 0] = 0.5
-        a = jnp.asarray(a)[None]
-        ev, evec = eigh_jacobi(a, sweeps=10, tile=8, interpret=True)
-        ref_ev, _ = jnp.linalg.eigh(a)
-        np.testing.assert_allclose(np.asarray(ev), np.asarray(ref_ev),
-                                   rtol=1e-12, atol=1e-12)
-        rec = jnp.einsum("bik,bk,bjk->bij", evec, ev, evec)
-        np.testing.assert_allclose(np.asarray(rec), np.asarray(a),
-                                   atol=1e-12)
-
-    def test_early_exit_still_fires_on_diagonal(self, rng):
-        """The full-matrix convergence check still exits immediately on an
-        (exactly) diagonal input — same eigenpairs, identity vectors."""
-        from tpu_assim.ops.pallas.jacobi import eigh_jacobi
-
-        d = np.array([3.0, 1.0, 4.0, 1.5, 9.0, 2.6])
-        a = jnp.asarray(np.diag(d))[None]
-        ev, evec = eigh_jacobi(a, sweeps=10, tile=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(ev)[0], np.sort(d),
-                                   atol=0.0)
-        orth = jnp.einsum("bki,bkj->bij", evec, evec)
-        np.testing.assert_allclose(np.asarray(orth)[0], np.eye(6),
-                                   atol=0.0)
-
-    def test_multi_batch_dims_and_ordering(self, rng):
-        from tpu_assim.ops.pallas.jacobi import eigh_jacobi
-
-        z = rng.randn(2, 3, 6, 4)
-        a = jnp.asarray(np.einsum("cbki,cbmi->cbkm", z, z) + np.eye(6))
-        ev, evec = eigh_jacobi(a, sweeps=10, tile=8, interpret=True)
-        assert ev.shape == (2, 3, 6) and evec.shape == (2, 3, 6, 6)
-        assert bool(jnp.all(jnp.diff(ev, axis=-1) >= -1e-12))  # ascending
+    g = np.asarray(jax.grad(loss)(a))
+    d = jnp.asarray(rng.randn(2, k, k))
+    h = 1e-6
+    fd = (loss(a + h * d) - loss(a - h * d)) / (2 * h)
+    np.testing.assert_allclose(np.sum(g * np.asarray(d)), float(fd),
+                               rtol=1e-6)

@@ -153,7 +153,7 @@ class TestWindowKernelHelpers:
     """Pure host-side helpers of the window kernels."""
 
     def test_cheb_degree_monotone_in_conditioning(self):
-        from tpu_assim.ops.pallas.letkf import cheb_degree_for
+        from tpu_assim.ops.window import cheb_degree_for
 
         degrees = [cheb_degree_for(lam) for lam in (1.5, 8.0, 43.0, 500.0)]
         assert degrees == sorted(degrees)
@@ -162,20 +162,8 @@ class TestWindowKernelHelpers:
         assert cheb_degree_for(8.0, tol=1e-10) > cheb_degree_for(8.0,
                                                                  tol=1e-4)
 
-    def test_required_obs_block_bounds(self, rng):
-        from tpu_assim.ops.pallas.letkf import required_obs_block
-
-        obs_x = np.sort(rng.uniform(0, 1000, size=200))
-        grid_x = np.arange(1000, dtype="f8")
-        nb = 16
-        blk = required_obs_block(obs_x, grid_x, nb)
-        assert blk % 8 == 0 or blk == 200
-        assert 2 * nb <= blk <= 200
-        # uniform obs: block stays near the density estimate, far below o
-        assert blk < 80
-
     def test_required_obs_block_2d_counts_bands(self, rng):
-        from tpu_assim.ops.pallas.letkf import required_obs_block_2d
+        from tpu_assim.ops.window import required_obs_block_2d
 
         # all obs at one y: every band containing it needs the full set
         obs_y = np.full(64, 5.0)

@@ -126,57 +126,35 @@ class TestRK4:
         np.testing.assert_allclose(np.asarray(thin[-1]), np.asarray(full[-1]),
                                    atol=1e-12)
 
-    def test_fused_rk4_kernel_matches_integrator(self, rng):
-        """The one-kernel Pallas forecast reproduces the stepwise
-        RK4Integrator (same scheme; only stage-combination order
-        differs)."""
-        from tpu_assim.models.pallas_forecast import (
-            fused_rk4_steps,
-            supports_fused_rk4,
-        )
+    @pytest.mark.parametrize("n_steps", [1, 4])
+    @pytest.mark.parametrize("method", ["eigh", "fused1d"])
+    def test_cycle_step_equals_forecast_then_analysis(self, rng, n_steps,
+                                                      method):
+        """make_cycle_step's forecast is the stepwise RK4Integrator (a
+        scan over ``integrate``), composed with the same analysis."""
+        from tpu_assim.analysis import make_cycle_step, make_letkf_analysis
+        from tpu_assim.ops.localization import GaspariCohn
 
+        k, g, o = 8, 64, 16
         integ = RK4Integrator(Lorenz96(), dt=0.05)
-        state = jnp.asarray(rng.normal(size=(8, 128)) + 2.0)
-        assert supports_fused_rk4(integ, state.shape, state.dtype.itemsize)
+        state = jnp.asarray(rng.normal(size=(k, g)) + 2.0)
+        obs_idx = np.arange(0, g, g // o).astype(np.int32)
+        grid = np.arange(g, dtype=np.float64)[:, None]
+        args = (jnp.asarray(rng.normal(size=o)), jnp.ones(o),
+                jnp.asarray(obs_idx), jnp.asarray(grid),
+                jnp.asarray(grid[obs_idx]))
+        loc = GaspariCohn((4.0,), lambda gc, oi: jnp.abs(
+            oi[:, 1] - gc[1])[None, :])
+        opts = dict(method=method, max_obs=8)
+        cyc = make_cycle_step(integ, n_steps, loc, 1.1, **opts)(state, *args)
         ref = state
-        for _ in range(4):
+        for _ in range(n_steps):
             ref = integ.integrate(ref)
-        fused = fused_rk4_steps(integ.model, state, integ.dt, 4)
-        np.testing.assert_allclose(np.asarray(fused), np.asarray(ref),
-                                   rtol=1e-12, atol=1e-12)
-
-    def test_fused_rk4_grad_matches_xla(self, rng):
-        """Round-4 advisor regression: the fused kernel carries a custom
-        VJP (backward replays the XLA loop), so jax.grad through a fused
-        forecast works and matches grad of the stepwise integrator."""
-        import jax
-
-        from tpu_assim.models.pallas_forecast import fused_rk4_steps
-
-        integ = RK4Integrator(Lorenz96(), dt=0.05)
-        state = jnp.asarray(rng.normal(size=(4, 128)) + 2.0)
-
-        def loss_fused(x):
-            return jnp.sum(fused_rk4_steps(integ.model, x, integ.dt, 3) ** 2)
-
-        def loss_ref(x):
-            for _ in range(3):
-                x = integ.integrate(x)
-            return jnp.sum(x ** 2)
-
-        g_fused = jax.grad(loss_fused)(state)
-        g_ref = jax.grad(loss_ref)(state)
-        np.testing.assert_allclose(np.asarray(g_fused), np.asarray(g_ref),
-                                   rtol=1e-10, atol=1e-10)
-
-    def test_fused_rk4_gate(self):
-        from tpu_assim.models.pallas_forecast import supports_fused_rk4
-
-        integ = RK4Integrator(Lorenz96(), dt=0.05)
-        assert not supports_fused_rk4(integ, (100, 10_000_000))
-        assert not supports_fused_rk4(
-            RK4Integrator(lambda x: -x, dt=0.05), (8, 128)
-        )
+        ana = make_letkf_analysis(loc, 1.1, **opts)(ref, *args)
+        # fused1d computes in float32
+        tol = 1e-10 if method == "eigh" else 1e-5
+        np.testing.assert_allclose(np.asarray(cyc), np.asarray(ana),
+                                   rtol=tol, atol=tol)
 
 
 class TestCycledDA:

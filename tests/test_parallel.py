@@ -1,4 +1,4 @@
-"""Sharded-vs-single-device parity tests — the TPU-native analog of the
+"""Sharded-vs-single-device parity tests — the SPMD analog of the
 reference's dask chunked-vs-unchunked oracle
 (/root/reference/tests/unit_tests/interface/test_etkf.py:109,
 test_ienks.py:188-200): the sharded SPMD program must reproduce the

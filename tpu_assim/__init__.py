@@ -1,16 +1,16 @@
 """
-tpu_assim — a TPU-native ensemble data-assimilation engine.
+tpu_assim — an ensemble data-assimilation engine in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 tobifinn/torch-assimilate (pytassim): ensemble transform Kalman filters
 (ETKF/LETKF), kernelized variants (KETKF/LKETKF), iterative ensemble Kalman
 smoothers (IEnKS transform/bundle, localized variants), Gaspari-Cohn
 localization, observation operators, inflation/normalization transforms, and
-Lorenz-96/84 toy models with RK4 integration — redesigned TPU-first:
+Lorenz-96/84 toy models with RK4 integration — redesigned for accelerators:
 
 * one jitted SPMD program end-to-end (no numpy<->torch bridging, no dask graph);
 * the per-gridpoint LETKF solves are batched einsums + batched eigendecompositions
-  on the MXU instead of a Python loop (reference: pytassim/interface/letkf.py:127-143
+  on the device instead of a Python loop (reference: pytassim/interface/letkf.py:127-143
   runs `np.vectorize` per grid point);
 * grid-domain parallelism via `jax.sharding` meshes + `shard_map` instead of dask
   chunking (reference: pytassim/interface/mixin_local.py:32-34);

@@ -1,7 +1,7 @@
 """
 Base assimilation interface: the ``assimilate()`` template method.
 
-TPU-native rebuild of /root/reference/pytassim/interface/base.py:52-512.
+JAX rebuild of /root/reference/pytassim/interface/base.py:52-512.
 The orchestration contract is identical — validate -> select analysis time ->
 pre-transforms -> ``update_state`` -> post-transforms -> validate — but the
 execution model is redesigned: there is no numpy<->torch bridge
@@ -15,11 +15,14 @@ import logging
 import time as _time
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tpu_assim.state import EnsembleState, StateError
 from tpu_assim.observation import Observation, ObservationError
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 logger = logging.getLogger(__name__)
 
@@ -43,7 +46,7 @@ class BaseAssimilation:
         and reloaded before application (reference: base.py:280-325).
 
     Note: the reference's ``gpu`` flag (base.py:107-122) has no analog — the
-    whole program runs on the default JAX device (TPU) by construction.
+    whole program runs on the default JAX device by construction.
     """
 
     def __init__(
@@ -171,9 +174,11 @@ class BaseAssimilation:
         per-gridpoint ``[grid, k, m]``."""
         state_mean, state_perts = state.split_mean_perts()
         if weights.ndim == 2:
-            analysis_perts = jnp.einsum("vtkg,km->vtmg", state_perts, weights)
+            analysis_perts = jnp.einsum("vtkg,km->vtmg", state_perts, weights,
+                                        precision=_HIGHEST)
         elif weights.ndim == 3:
-            analysis_perts = jnp.einsum("vtkg,gkm->vtmg", state_perts, weights)
+            analysis_perts = jnp.einsum("vtkg,gkm->vtmg", state_perts, weights,
+                                        precision=_HIGHEST)
         else:
             raise ValueError(
                 "weights must be [k, m] or [grid, k, m], got shape "

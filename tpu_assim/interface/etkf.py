@@ -1,7 +1,7 @@
 """
 Global ETKF algorithm.
 
-TPU-native rebuild of /root/reference/pytassim/interface/etkf.py:36-120
+JAX rebuild of /root/reference/pytassim/interface/etkf.py:36-120
 (Bishop 2001 / Hunt 2007): global weight estimation in ensemble space,
 followed by weight application. The reference's
 ``xr.apply_ufunc(..., dask='parallelized')`` call (etkf.py:108-119) is

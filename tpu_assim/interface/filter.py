@@ -1,7 +1,7 @@
 """
 Filtering-mode assimilation template.
 
-TPU-native rebuild of /root/reference/pytassim/interface/filter.py:29-165:
+JAX rebuild of /root/reference/pytassim/interface/filter.py:29-165:
 subclasses only implement ``estimate_weights``; this class handles
 filtering-mode time slicing, the obs-operator application, optional weight
 checkpointing, and weight application.

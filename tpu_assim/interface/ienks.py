@@ -1,7 +1,7 @@
 """
 Iterative Ensemble Kalman Smoother interfaces (transform & bundle).
 
-TPU-native rebuild of /root/reference/pytassim/interface/ienks.py:31-164.
+JAX rebuild of /root/reference/pytassim/interface/ienks.py:31-164.
 The inner loop is one jitted batched call of the functional IEnKS core; the
 learning rate ``tau`` is bounded to [0, 1] and ``epsilon`` to > 0, matching
 the reference's ``bound_tensor`` setters (ienks.py:64-68, 137-155).

@@ -1,7 +1,7 @@
 """
 Global kernelized ETKF (KETKF).
 
-TPU-native rebuild of /root/reference/pytassim/interface/ketkf.py:32-123:
+JAX rebuild of /root/reference/pytassim/interface/ketkf.py:32-123:
 the ETKF weight solve with an arbitrary kernel Gram matrix (double-centered
 in feature space) instead of the linear dot product.
 """
@@ -40,7 +40,7 @@ class KETKF(ETKF):
         Gram function over the trailing two dims). Default: linear kernel,
         which makes KETKF equivalent to ETKF.
     inf_factor : inflation rho, acting as l2-regularization of the GP weights.
-    method : ``"eigh"`` (exact, default) or ``"newton"`` (matmul-only MXU
+    method : ``"eigh"`` (exact, default) or ``"newton"`` (matmul-only
         solve — the centered kernel Gram is PSD, see ops/ketkf.py).
     """
 

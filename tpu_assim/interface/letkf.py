@@ -1,7 +1,7 @@
 """
 Localized ETKF (LETKF).
 
-TPU-native rebuild of /root/reference/pytassim/interface/letkf.py:34-148
+JAX rebuild of /root/reference/pytassim/interface/letkf.py:34-148
 (Hunt et al. 2007): an independent ETKF solve per grid column with
 spatially-localized observations.
 
@@ -11,7 +11,7 @@ inside each dask chunk (letkf.py:127-143), with ragged per-column obs subsets.
 Here the whole grid runs as one (grid-chunked) batched computation: the
 Gaspari-Cohn taper is evaluated for all (column, obs) pairs, and the per-column
 solves become two large einsums + one batched K x K eigendecomposition on the
-MXU (:func:`tpu_assim.ops.etkf.letkf_weights_dense`). Zero-weight observations
+device (:func:`tpu_assim.ops.etkf.letkf_weights_dense`). Zero-weight observations
 contribute exactly nothing to the Gram products, so the fixed-size weighted
 formulation is numerically identical to the reference's ragged masking
 (wrapper.py:86-99).
@@ -94,14 +94,13 @@ def _letkf_fused_analysis(
     """Fused solve+apply: the full [v, t, k, g] analysis WITHOUT
     materializing the [g, k, k] weights — one obs-space Chebyshev solve per
     column shared across every (var, time) slice, per-slice Clenshaw
-    application inside the Pallas kernel (the class-API route to the
-    monolithic-kernel speed; same math as the reference's estimate + apply,
+    application (same math as the reference's estimate + apply,
     interface/letkf.py:104-148 + base.py:256-278)."""
     from tpu_assim.ops.localization import (
         neighborhood_select,
         neighborhood_select_window,
     )
-    from tpu_assim.ops.pallas.letkf import (
+    from tpu_assim.ops.window import (
         letkf_nbh_analysis_cheb,
         letkf_window_analysis_fused,
     )
@@ -114,7 +113,7 @@ def _letkf_fused_analysis(
     reg = (k - 1) / jnp.asarray(inf_factor, dtype)
 
     if method == "fused1d":
-        # monolithic window kernel: needs sorted 1-D obs coords (sorted by
+        # window analysis: needs sorted 1-D obs coords (sorted by
         # _estimate_and_apply) and a single-radius Gaspari-Cohn taper
         import numpy as np
 
@@ -122,20 +121,20 @@ def _letkf_fused_analysis(
         out = letkf_window_analysis_fused(
             ens_obs_perts, innovations, obs_info[:, 1], grid_info[:, 1],
             sp, mean, reg, radius, k,
-            nb=max_obs, degree=cheb_degree, obs_block=obs_block,
+            nb=max_obs, degree=cheb_degree,
             taper=taper, epsilon=float(localization.epsilon),
             strict=strict,
         )
         return out.reshape(v, t, k, g).astype(data.dtype)
 
     if method == "fused2d":
-        # monolithic 2-D window kernel: per-dimension radii multiplied
+        # 2-D window analysis: per-dimension radii multiplied
         # (reference gaspari_cohn.py:124-134); obs sorted internally.
         # Coordinate dims beyond (x, y) — e.g. the COSMO vertical — ride
         # along as extra product taper factors (band/window stay on y/x).
         import numpy as np
 
-        from tpu_assim.ops.pallas.letkf import (
+        from tpu_assim.ops.window import (
             letkf_window_analysis_fused_2d,
         )
 
@@ -210,13 +209,12 @@ class LETKF(DomainLocalizedMixin, ETKF):
     method : solver path (docs/solvers.md). Weight-based (materialize
         [g, k, k] weights, required for ``weight_save_path``): ``"eigh"``
         (exact, default), ``"newton"``, ``"woodbury"`` (obs-neighborhood
-        only). Fused solve+apply fast paths (never materialize weights;
+        only). Fused solve+apply paths (never materialize weights;
         require ``localization`` and ``max_obs``): ``"cheb"`` — the
-        Chebyshev/Clenshaw Pallas kernel with the obs-space solve shared
-        across all (var, time) state slices; ``"fused1d"`` — the monolithic
-        window kernel (selection + taper + gather + solve + apply in one
-        pallas_call; needs sorted 1-D obs coords and single-radius
-        GaspariCohn).
+        Chebyshev/Clenshaw solve with the obs-space solve shared across
+        all (var, time) state slices; ``"fused1d"`` — the window analysis
+        (selection + taper + gather + solve + apply; needs sorted 1-D obs
+        coords and single-radius GaspariCohn).
     max_obs_strict : with the fused window paths (and window selection),
         raise / NaN-poison when any grid column has more in-support
         (nonzero-taper) observations than ``max_obs`` — the condition under
@@ -229,13 +227,13 @@ class LETKF(DomainLocalizedMixin, ETKF):
         auto: each ``assimilate()`` call measures a per-column spectral
         bound on the obs-space operator and picks the smallest degree whose
         Chebyshev truncation error is below 1e-6
-        (:func:`tpu_assim.ops.pallas.letkf.cheb_degree_for`) — well-observed
+        (:func:`tpu_assim.ops.window.cheb_degree_for`) — well-observed
         smoother windows automatically get the higher degree their
         conditioning needs. An explicit int pins the degree (the benchmark
         workload is validated at 12).
     n_strips : ``method="fused2d"`` only. None (default) = auto: wide 2-D
         grids (> ~512 distinct x values) are split into x-strips of ~256
-        distinct x each and run through the single-kernel strip assembly
+        distinct x each and run through the batched strip assembly
         (:func:`tpu_assim.analysis._strip_plan_2d` — the production path;
         the fused2d per-tile candidate band spans the whole domain width,
         so an unsplit wide grid pays selection cost linear in the x
@@ -375,7 +373,7 @@ class LETKF(DomainLocalizedMixin, ETKF):
         """
         import numpy as np
 
-        from tpu_assim.ops.pallas.letkf import cheb_degree_for
+        from tpu_assim.ops.window import cheb_degree_for
 
         k = ens_obs_perts.shape[0]
         reg = (k - 1) / float(self.inf_factor)
@@ -406,7 +404,7 @@ class LETKF(DomainLocalizedMixin, ETKF):
         path, :func:`tpu_assim.analysis._strip_plan_2d` /
         ``_strip_apply_2d``): geometry is concrete at ``assimilate()``
         time, so the strip plan (column permutation, multi-segment obs
-        table, per-tile DMA bands) is built host-side with the same loud
+        table, per-tile bands) is built host-side with the same loud
         prechecks as ``make_strip_letkf_2d`` and the jitted apply is
         cached per (geometry, shape, degree)."""
         import hashlib
@@ -449,8 +447,8 @@ class LETKF(DomainLocalizedMixin, ETKF):
 
     def _check_max_obs(self, worst: int) -> None:
         """Raise when a column's in-support obs count exceeds ``max_obs``
-        (the fixed-size window selection would silently truncate — VERDICT
-        r2 #3; reference exactness contract: wrapper.py:91-97, ragged
+        (the fixed-size window selection would silently truncate; reference
+        exactness contract: wrapper.py:91-97, ragged
         subsets are exact)."""
         if worst > self.max_obs:
             raise ValueError(
@@ -488,10 +486,9 @@ class LETKF(DomainLocalizedMixin, ETKF):
         import numpy as np
 
         from tpu_assim.ops.localization import GaspariCohnInf
-        from tpu_assim.ops.pallas.letkf import (
+        from tpu_assim.ops.window import (
             max_in_support_1d,
             max_in_support_2d,
-            required_obs_block,
             required_obs_block_2d,
         )
 
@@ -539,18 +536,13 @@ class LETKF(DomainLocalizedMixin, ETKF):
             obs_x = np.asarray(obs_info[:, 1])
             if obs_x.shape[0] > 1 and np.any(obs_x[1:] < obs_x[:-1]):
                 # smoother-mode stacks repeat the spatial coordinates per
-                # time; the window kernel needs them globally sorted (the
+                # time; the window path needs them globally sorted (the
                 # taper is time-blind, so sorting is exact)
                 order = jnp.asarray(np.argsort(obs_x, kind="stable"))
                 innovations = innovations[order]
                 ens_obs_perts = ens_obs_perts[:, order]
                 obs_info = obs_info[order]
                 obs_x = obs_x[np.asarray(order)]
-            obs_block = required_obs_block(
-                obs_x, np.asarray(grid_info[:, 1]), self.max_obs,
-                radius=radius, taper=taper,
-                epsilon=float(self.localization.epsilon),
-            )
             if self.max_obs_strict:
                 self._check_max_obs(max_in_support_1d(
                     obs_x, np.asarray(grid_info[:, 1]), radius, taper=taper,

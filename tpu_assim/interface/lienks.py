@@ -1,7 +1,7 @@
 """
 Localized IEnKS (transform & bundle).
 
-TPU-native rebuild of /root/reference/pytassim/interface/lienks.py:31-163:
+JAX rebuild of /root/reference/pytassim/interface/lienks.py:31-163:
 the IEnKS inner step per grid column, with localized (sqrt-weight-scaled)
 obs-space inputs. The reference skips localizing the weight argument
 (``args_to_skip=(0,)``, lienks.py:106-113); here that is structural — the
@@ -42,7 +42,7 @@ def _lienks_solve(
     def chunk_fn(chunk):
         grid_chunk, w_chunk = chunk
         if localization is not None and max_obs is not None:
-            # Fast localized path (VERDICT r2 #4): fixed-size obs
+            # Fast localized path: fixed-size obs
             # neighborhoods, O(g * k * nb) instead of the dense
             # O(g * k * o) scaled tensors — exact whenever no column has
             # more nonzero-taper obs than max_obs (zero-scaled components

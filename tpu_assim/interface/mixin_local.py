@@ -1,14 +1,14 @@
 """
 Domain-localization mixin.
 
-TPU-native rebuild of /root/reference/pytassim/interface/mixin_local.py:31-69.
+JAX rebuild of /root/reference/pytassim/interface/mixin_local.py:31-69.
 The reference extracts pandas MultiIndex frames for the per-gridpoint
 localization loop; here the state/obs coordinate arrays are already explicit
 (:meth:`EnsembleState.grid_info`, :meth:`Observation.stacked_coords`) and the
 localized solve is a batched, optionally grid-chunked jnp computation.
 
 ``chunksize`` keeps the reference parameter name (mixin_local.py:32-34) but
-means something better on TPU: the number of grid columns whose
+means something better on an accelerator: the number of grid columns whose
 ``[chunk, n_obs]`` taper-weight block is materialized at once (bounding HBM
 footprint), processed sequentially with ``lax.map`` — not a dask chunk.
 """

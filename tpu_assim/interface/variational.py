@@ -1,7 +1,7 @@
 """
 Variational (outer-loop) assimilation template.
 
-TPU-native rebuild of /root/reference/pytassim/interface/variational.py:33-136:
+JAX rebuild of /root/reference/pytassim/interface/variational.py:33-136:
 an outer Gauss–Newton loop that alternates model propagation, obs-operator
 application, and a weight-space ``inner_loop``.
 

@@ -1,10 +1,10 @@
 """
 Fixed-step time integrators.
 
-TPU-native rebuild of /root/reference/pytassim/model/integration/
+JAX rebuild of /root/reference/pytassim/model/integration/
 (integrator.py:39-138, rk4.py:39-114): the generic ``integrate(state)`` API
 with configurable Runge-Kutta steps/weights, plus a ``lax.scan``-based
-trajectory driver that the reference lacks (it loops in Python) — on TPU the
+trajectory driver that the reference lacks (it loops in Python) — on the device the
 whole cycled integration compiles to one fused XLA loop.
 """
 

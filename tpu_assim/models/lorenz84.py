@@ -1,7 +1,7 @@
 """
 Lorenz '84 Hadley-circulation model.
 
-TPU-native rebuild of /root/reference/pytassim/model/lorenz_84.py:38-227:
+JAX rebuild of /root/reference/pytassim/model/lorenz_84.py:38-227:
 three coupled variables (westerly current X, cosine/sine eddy phases Y, Z)
 with damping ``a``, displacement ``b``, and symmetric/asymmetric forcings
 ``F``/``G``:

@@ -1,7 +1,7 @@
 """
 Lorenz '96 model.
 
-TPU-native rebuild of /root/reference/pytassim/model/lorenz_96.py:39-203:
+JAX rebuild of /root/reference/pytassim/model/lorenz_96.py:39-203:
 ``dx_i/dt = (x_{i+1} - x_{i-2}) x_{i-1} - x_i + F`` on a periodic ring, as a
 pure jnp callable over the trailing (grid) axis — batched over arbitrary
 leading (ensemble/time) dims and fully jit/scan-compatible for cycled DA.

@@ -79,7 +79,8 @@ class IdentityOperator(BaseOperator):
         ].set(1.0)
 
         def operator(x: jnp.ndarray) -> jnp.ndarray:
-            return jnp.einsum("...g,og->...o", x, h_matrix)
+            return jnp.einsum("...g,og->...o", x, h_matrix,
+                              precision=jax.lax.Precision.HIGHEST)
 
         return operator
 

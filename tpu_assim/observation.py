@@ -1,7 +1,7 @@
 """
 Observation container with R^{-1/2} normalization.
 
-TPU-native replacement for the reference's xarray accessor ``Observation``
+JAX replacement for the reference's xarray accessor ``Observation``
 (/root/reference/pytassim/observation.py:52-299): a registered pytree holding
 the observation values ``[time, obs]``, the observation covariance (diagonal
 vector, possibly time-dependent, or a full correlated matrix), explicit

@@ -1,7 +1,7 @@
 """
 ETKF weight-space analysis core.
 
-Functional TPU-native equivalent of the reference's ``ETKFModule``
+Functional JAX equivalent of the reference's ``ETKFModule``
 (/root/reference/pytassim/core/etkf.py:29-103). Given R^{-1/2}-normalized
 observation-space ensemble perturbations ``Z`` (ens x obs) and normalized
 innovations ``y`` (obs,), produce the K x K ensemble weight matrix
@@ -72,12 +72,11 @@ def etkf_weights_from_gram(
     inf_factor : covariance inflation factor ``rho`` entering as the
         regularizer ``(K-1)/rho`` (reference: core/etkf.py:67).
     method : ``"eigh"`` — exact eigendecomposition (bitwise-comparable to the
-        reference math; XLA's batched eigh is slow on TPU for [B, K, K]
-        batches). ``"newton"`` — matmul-only coupled Newton–Schulz iteration
-        computing ``(G + reg I)^{-1}`` and ``(G + reg I)^{-1/2}`` directly on
-        the MXU; mathematically identical for PSD Gram matrices (the
+        reference math). ``"newton"`` — matmul-only coupled Newton–Schulz iteration
+        computing ``(G + reg I)^{-1}`` and ``(G + reg I)^{-1/2}`` directly as
+        matrix products; mathematically identical for PSD Gram matrices (the
         eigenvalue clamp of the eigh path is then inactive), accurate to
-        working precision, and the TPU speed-of-light path.
+        working precision.
     newton_iters : iteration count for ``method="newton"``.
     """
     reg_value = (ens_size - 1) / jnp.asarray(inf_factor, dtype=kernel_perts.dtype)
@@ -163,7 +162,7 @@ def letkf_weights_dense(
     and ``Z_loc y_loc^T = Z diag(w) y^T`` — so the masked ragged subsets can
     be replaced *exactly* by weighting inside two large einsums over the full
     obs vector (zero-weight obs contribute nothing), which is precisely the
-    MXU-friendly formulation. When a column's weights are all zero, the solve
+    matmul formulation. When a column's weights are all zero, the solve
     degenerates to the inflated prior ``sqrt(rho) I`` — the same result as the
     reference's empty-obs path, again exactly.
 
@@ -182,7 +181,7 @@ def letkf_weights_dense(
     normed_obs = normed_obs.reshape(-1)
     ens_size = normed_perts.shape[-2]
     # Batched Gram matrices: G[g] = Z diag(w_g) Z^T, zy[g] = Z diag(w_g) y.
-    # HIGHEST precision: these feed a matrix inverse; bf16 MXU passes would
+    # HIGHEST precision: these feed a matrix inverse; reduced-precision products would
     # dominate the error budget (see matrix_product).
     hp = jax.lax.Precision.HIGHEST
     kernel_perts = jnp.einsum(

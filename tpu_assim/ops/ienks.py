@@ -1,7 +1,7 @@
 """
 Iterative Ensemble Kalman Smoother (IEnKS) inner-step cores.
 
-Functional TPU-native equivalents of the reference's
+Functional JAX equivalents of the reference's
 ``IEnKSTransformModule`` / ``IEnKSBundleModule``
 (/root/reference/pytassim/core/ienks.py:28-175): one Gauss–Newton step in
 ensemble-weight space, with a learning rate ``tau`` blending the updated
@@ -14,11 +14,11 @@ all grid columns in one batched call.
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 
 from tpu_assim.ops.linalg import (
-    svd,
-    rev_svd,
+    inv_and_inv_sqrt_psd_eigh,
     matrix_product,
     diagonal_add,
 )
@@ -39,14 +39,15 @@ def _split_weights(weights: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 def _decompose_weights(
     weights: jnp.ndarray, ens_size: int
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """SVD-invert the weight perturbations to recover their inverse and the
-    weight-space precision (reference: pytassim/core/ienks.py:58-69)."""
+    """Invert the weight perturbations ``W'`` and form the weight-space
+    precision ``(K-1) (W' W'^T)^{-1}`` (reference: pytassim/core/ienks.py:
+    58-69, which takes both from one SVD ``W' = U S V^T``: ``W'^{-1} =
+    V S^{-1} U^T`` and ``U S^{-2} U^T``). One batched LU inverse gives the
+    same two matrices: ``(W' W'^T)^{-1} = W'^{-T} W'^{-1}``."""
     w_mean, w_perts = _split_weights(weights)
-    u, s, v = svd(w_perts)
-    s_inv = 1.0 / s
-    s_prec = jnp.square(s_inv)
-    w_perts_inv = jnp.swapaxes(rev_svd(u, s_inv, v), -1, -2)
-    w_prec = rev_svd(u, s_prec, u) * (ens_size - 1)
+    w_perts_inv = jnp.linalg.inv(w_perts)
+    inv_t = jnp.swapaxes(w_perts_inv, -1, -2)
+    w_prec = matrix_product(inv_t, inv_t) * (ens_size - 1)
     return w_mean, w_perts_inv, w_prec
 
 
@@ -70,16 +71,17 @@ def _update_covariance(
     tau: jnp.ndarray,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Blend the old and new weight precision by the learning rate ``tau``,
-    then SVD-invert into covariance and square-root perturbation weights
-    (reference: pytassim/core/ienks.py:92-106)."""
-    new_prec = matrix_product(dh_dw, dh_dw)
-    new_prec = diagonal_add(new_prec, ens_size - 1.0)
-    updated_prec = (1.0 - tau) * w_prec + tau * new_prec
-    u, s, v = svd(updated_prec)
-    s_inv = 1.0 / s
-    weights_cov = rev_svd(u, s_inv, v)
-    s_perts = jnp.sqrt(s_inv * (ens_size - 1))
-    weights_perts = rev_svd(u, s_perts, v)
+    then invert into covariance and square-root perturbation weights
+    (reference: pytassim/core/ienks.py:92-106, by SVD). The blended
+    precision ``(1-tau) P + tau (dH dH^T + (K-1) I)`` is symmetric positive
+    definite, so its SVD is its eigendecomposition: one batched ``eigh``
+    (with the NaN-free custom JVP of
+    :func:`tpu_assim.ops.linalg.inv_and_inv_sqrt_psd_eigh`) gives the
+    inverse and the inverse square root."""
+    blended = (1.0 - tau) * w_prec + tau * matrix_product(dh_dw, dh_dw)
+    weights_cov, prec_inv_sqrt = inv_and_inv_sqrt_psd_eigh(
+        blended, tau * (ens_size - 1.0))
+    weights_perts = prec_inv_sqrt * jnp.sqrt(ens_size - 1.0)
     return weights_cov, weights_perts
 
 
@@ -101,7 +103,8 @@ def _ienks_step(
     dh_dw = dh_dw_fn(normed_perts, w_perts_inv)
     grad = _get_gradient(w_mean, dh_dw, normed_obs, ens_size)
     w_cov, w_perts = _update_covariance(w_prec, dh_dw, ens_size, tau)
-    delta_weight = jnp.einsum("...ij,...jl->...il", w_cov, grad)
+    delta_weight = jnp.einsum("...ij,...jl->...il", w_cov, grad,
+                              precision=jax.lax.Precision.HIGHEST)
     w_mean = w_mean - tau * delta_weight
     return w_mean + w_perts
 
@@ -126,7 +129,8 @@ def ienks_transform_step(
     tau = jnp.asarray(tau, dtype=weights.dtype)
 
     def dh_dw_fn(perts, w_perts_inv):
-        return jnp.einsum("...ij,...jl->...il", w_perts_inv, perts)
+        return jnp.einsum("...ij,...jl->...il", w_perts_inv, perts,
+                          precision=jax.lax.Precision.HIGHEST)
 
     return _ienks_step(weights, normed_perts, normed_obs, tau, dh_dw_fn)
 

@@ -1,7 +1,7 @@
 """
 Kernel base classes with operator composition.
 
-TPU-native rebuild of the reference kernel family
+JAX rebuild of the reference kernel family
 (/root/reference/pytassim/kernels/base_kernels.py:39-161): kernels are
 callable pytrees (parameters are leaves, so kernels trace cleanly through
 ``jit``/``vmap``/``grad``), composable with ``+``, ``*`` and ``**``.

@@ -1,7 +1,7 @@
 """
 Concrete kernel family.
 
-TPU-native rebuild of the ten reference kernels
+JAX rebuild of the ten reference kernels
 (/root/reference/pytassim/kernels/): pure jnp math, parameters as pytree
 leaves. The math of each kernel is cited to its reference file.
 """

@@ -6,6 +6,7 @@ broadcast over leading batch dims, so kernelized per-gridpoint solves batch
 over the whole grid.
 """
 
+import jax
 import jax.numpy as jnp
 
 __all__ = ["dot_product", "distance_matrix", "euclidean_dist"]
@@ -14,13 +15,16 @@ __all__ = ["dot_product", "distance_matrix", "euclidean_dist"]
 def dot_product(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     """Pairwise dot products ``x y^T`` over trailing dims
     (reference: kernels/utils.py:57)."""
-    return jnp.einsum("...ij,...kj->...ik", x, y)
+    # HIGHEST: kernel Grams feed the KETKF inverse; a TF32 product would
+    # cost ~3 digits there
+    return jnp.einsum("...ij,...kj->...ik", x, y,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def distance_matrix(x: jnp.ndarray, y: jnp.ndarray, norm: float = 2.0) -> jnp.ndarray:
     """Pairwise p-norm distance matrix (reference: kernels/utils.py:61-87,
     torch.cdist). Implemented directly: for p=2 via the Gram expansion
-    (MXU-friendly), otherwise via broadcast differences."""
+    (one matrix product), otherwise via broadcast differences."""
     if norm == 2.0:
         # ||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y ; clamp for roundoff.
         sq = (

@@ -1,7 +1,7 @@
 """
 Kernelized ETKF (KETKF) analysis core.
 
-Functional TPU-native equivalent of the reference's ``KETKFModule``
+Functional JAX equivalent of the reference's ``KETKFModule``
 (/root/reference/pytassim/core/ketkf.py:29-94): the same regularized
 weight-space solve as the ETKF, but the Gram matrix comes from an arbitrary
 kernel and is double-centered in feature space.
@@ -62,7 +62,7 @@ def ketkf_weights(
     kernel : callable Gram function, e.g. :class:`tpu_assim.ops.kernels.GaussKernel`.
     inf_factor : inflation factor rho (l2-regularization of the GP weights).
     method : ``"eigh"`` (exact) or ``"newton"`` (matmul-only Newton-Schulz
-        on the MXU — valid because the double-centered Gram of a PSD kernel
+        — valid because the double-centered Gram of a PSD kernel
         is itself PSD: centering is the projection ``P K P``).
     newton_iters : iterations for ``method="newton"``.
     """
@@ -110,8 +110,8 @@ def ketkf_cheb_analysis(
     ``X = I + Gc/reg`` (spectrum in ``[1, 1 + tr(Gc)/reg]``), both are
     degree-``degree`` Chebyshev expansions evaluated by a Clenshaw
     recurrence of batched mat-vecs — O(d k^2) per column instead of the
-    O(k^3) batched eigendecomposition, and pure MXU/VPU work XLA fuses
-    on its own (no Pallas needed: the operands are genuinely batched
+    O(k^3) batched eigendecomposition, and work XLA fuses
+    on its own (no hand-written kernel needed: the operands are genuinely batched
     matvecs). Degenerate columns (all-zero scaled inputs) give
     ``Gc = 0, q = 0`` exactly (double-centering annihilates the constant
     Gram), so the output is the reference's empty-obs path
@@ -130,7 +130,7 @@ def ketkf_cheb_analysis(
 
     Returns the analysis [ns, k, g].
     """
-    from tpu_assim.ops.pallas.letkf import _cheb_nodes_dct
+    from tpu_assim.ops.window import _cheb_nodes_dct
 
     hp = jax.lax.Precision.HIGHEST
     dtype = scaled_perts.dtype

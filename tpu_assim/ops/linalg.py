@@ -4,7 +4,7 @@ Batched linear-algebra helpers for the analysis cores.
 Functional JAX equivalents of the reference's torch helpers
 (/root/reference/pytassim/core/utils.py:26-199), generalized to arbitrary
 leading batch dimensions so that millions of per-gridpoint K x K solves run as
-one batched XLA op on the MXU instead of a Python loop.
+one batched XLA op instead of a Python loop.
 
 All recompositions are einsums so XLA can fuse scaling into the matmuls.
 """
@@ -23,8 +23,6 @@ __all__ = [
     "matrix_product",
     "diagonal_add",
     "eigh_psd",
-    "set_jacobi_dispatch",
-    "jacobi_dispatch_enabled",
     "inv_and_inv_sqrt_psd_eigh",
     "inv_sqrt_psd_newton",
     "sqrt_and_inv_sqrt_psd_newton",
@@ -64,96 +62,21 @@ def rev_evd(evals: jnp.ndarray, evects: jnp.ndarray) -> jnp.ndarray:
                       precision=jax.lax.Precision.HIGHEST)
 
 
-@jax.custom_vjp
-def _svd_jacobi_diff(tensor: jnp.ndarray):
-    from tpu_assim.ops.pallas.svd import svd_jacobi
-
-    return svd_jacobi(tensor)
-
-
-def _svd_jacobi_fwd(tensor):
-    out = _svd_jacobi_diff(tensor)
-    return out, out
-
-
-def _svd_jacobi_bwd(res, cot):
-    # Standard square-SVD pullback expressed in the FORWARD's own
-    # (u, s, v) — valid for any sign/order convention, so the Pallas
-    # kernel's outputs (signs arbitrary, like LAPACK's) feed it directly:
-    #   dA = U [ (F o sk(U^T dU)) S + S (F o sk(V^T dV)) + diag(ds) ] V^T
-    # with F_ij = 1/(s_j^2 - s_i^2) and sk(X) = X - X^T. Exactly repeated
-    # singular values zero-guard F (the gradient of any
-    # rotation-invariant composition stays correct; per-vector gradients
-    # are non-unique there for LAPACK too).
-    u, s, v = res
-    du, ds, dv = cot
-    hp = jax.lax.Precision.HIGHEST
-    s2 = s * s
-    den = s2[..., None, :] - s2[..., :, None]
-    f = jnp.where(den != 0.0, 1.0 / jnp.where(den == 0.0, 1.0, den), 0.0)
-
-    def sk(x):
-        return x - jnp.swapaxes(x, -1, -2)
-
-    k = s.shape[-1]
-    inner = jnp.zeros(s.shape[:-1] + (k, k), s.dtype)
-    if type(du) is not jax.interpreters.ad.Zero:
-        utdu = jnp.einsum("...ki,...kj->...ij", u, du, precision=hp)
-        inner = inner + (f * sk(utdu)) * s[..., None, :]
-    if type(dv) is not jax.interpreters.ad.Zero:
-        vtdv = jnp.einsum("...ki,...kj->...ij", v, dv, precision=hp)
-        inner = inner + s[..., :, None] * (f * sk(vtdv))
-    if type(ds) is not jax.interpreters.ad.Zero:
-        inner = inner + ds[..., :, None] * jnp.eye(k, dtype=s.dtype)
-    da = jnp.einsum("...ik,...kl,...jl->...ij", u, inner, v, precision=hp)
-    return (da,)
-
-
-_svd_jacobi_diff.defvjp(_svd_jacobi_fwd, _svd_jacobi_bwd)
-
-
 def svd(
-    tensor: jnp.ndarray,
-    reg_value: jnp.ndarray | float = 0.0,
-    use_jacobi: Optional[bool] = None,
+    tensor: jnp.ndarray, reg_value: jnp.ndarray | float = 0.0
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Reduced SVD with additive regularization of the singular values.
 
     Matches torch.svd conventions used by the reference
     (pytassim/core/utils.py:96-124): returns ``v`` (not ``v^T``) such that
-    ``tensor = u diag(s) v^T``.
-
-    Dispatch: large square f32 [B, K, K] batches on TPU go to the Pallas
-    one-sided Jacobi kernel by default
-    (:func:`tpu_assim.ops.pallas.svd.svd_jacobi`) — the IEnKS inner loops
-    run two such SVDs per grid column and XLA's batched svd at that shape
-    is even slower than its batched eigh (scripts/validate_svd.py). The
-    dispatch follows the same gate and controls as :func:`eigh_psd`
-    (``use_jacobi`` / :func:`set_jacobi_dispatch` / ``TPU_ASSIM_JACOBI``);
-    everything else stays on ``jnp.linalg.svd``. The Jacobi path is
-    differentiable via a custom pullback in its own outputs.
+    ``tensor = u diag(s) v^T``. Singular vectors of a rank-deficient input
+    span its null space in an arbitrary basis, as LAPACK's do; callers that
+    need a unique answer compose ``u``, ``s`` and ``v`` into a
+    rotation-invariant matrix function.
     """
-    if use_jacobi is None:
-        use_jacobi = jacobi_dispatch_enabled()
-    k = tensor.shape[-1]
-    batch = 1
-    for dim in tensor.shape[:-2]:
-        batch *= dim
-    if (
-        use_jacobi
-        and tensor.dtype == jnp.float32
-        and tensor.ndim >= 3
-        and tensor.shape[-2] == k
-        and k <= 64
-        and batch >= 256
-        and jax.default_backend() == "tpu"
-    ):
-        u, s, v = _svd_jacobi_diff(tensor)
-    else:
-        u, s, vh = jnp.linalg.svd(tensor, full_matrices=False)
-        v = jnp.swapaxes(vh, -1, -2)
-    s = s + reg_value
-    return u, s, v
+    u, s, vh = jnp.linalg.svd(tensor, full_matrices=False)
+    v = jnp.swapaxes(vh, -1, -2)
+    return u, s + reg_value, v
 
 
 def rev_svd(u: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
@@ -165,8 +88,9 @@ def rev_svd(u: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 def matrix_product(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     """``x @ y^T`` over the trailing two dims (pytassim/core/utils.py:153-173).
 
-    Full f32 precision on TPU: Gram matrices feed matrix inversions, where
-    the default bf16 MXU passes cost ~3 digits in the final weights.
+    ``precision=HIGHEST``: Gram matrices feed matrix inversions, where a
+    reduced-precision (TF32 or bf16) product costs ~3 digits in the final
+    weights.
     """
     return jnp.einsum("...kl,...ml->...km", x, y,
                       precision=jax.lax.Precision.HIGHEST)
@@ -180,92 +104,14 @@ def diagonal_add(tensor: jnp.ndarray, to_add: jnp.ndarray | float = 0.0) -> jnp.
     return tensor + to_add * eye
 
 
-_jacobi_dispatch: Optional[bool] = None  # None = take the env-var default
-
-
-def set_jacobi_dispatch(enabled: Optional[bool]) -> None:
-    """Set the process-wide default for the Pallas-Jacobi eigh dispatch.
-
-    ``True``/``False`` force the dispatch on/off for subsequent *traces*;
-    ``None`` restores the environment default (``TPU_ASSIM_JACOBI``, on
-    unless set to ``"0"``). Functions that were already jit-compiled keep
-    the backend they were traced with — call sites that need per-call
-    control should pass ``use_jacobi=`` to :func:`eigh_psd` explicitly and
-    thread it through their jit as a static argument.
-    """
-    global _jacobi_dispatch
-    _jacobi_dispatch = enabled
-
-
-def jacobi_dispatch_enabled() -> bool:
-    """Resolve the current default for the Pallas-Jacobi dispatch
-    (explicit :func:`set_jacobi_dispatch` value, else ``TPU_ASSIM_JACOBI``)."""
-    import os
-
-    if _jacobi_dispatch is not None:
-        return _jacobi_dispatch
-    return os.environ.get("TPU_ASSIM_JACOBI", "1") != "0"
-
-
-def eigh_psd(
-    tensor: jnp.ndarray, use_jacobi: Optional[bool] = None
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
+def eigh_psd(tensor: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Batched symmetric eigendecomposition.
 
     Same convention as :func:`jnp.linalg.eigh` (ascending eigenvalues,
     eigenvector columns — the reference's ``torch.symeig(..., upper=False)``,
-    pytassim/core/utils.py:57).
-
-    Dispatch: large f32 [B, K, K] batches on TPU go to a Pallas Jacobi
-    kernel by DEFAULT — since round 5 the ONE-SIDED Hestenes kernel
-    (:func:`tpu_assim.ops.pallas.svd.eigh_svd_jacobi`: eigenvectors = V of
-    the SVD, eigenvalues sign-recovered from diag(U^T V)), whose
-    transposed carry keeps every per-round op on the cheap untiled axis:
-    115 ms at [10^4, 40, 40] f32 random SPD on v5e vs 212 ms for the
-    two-sided :func:`~tpu_assim.ops.pallas.jacobi.eigh_jacobi` and ~1.0 s
-    for XLA's batched eigh (8.5x), at equal or better compiled-f32
-    quality — orthogonality ~1e-5, reconstruction 2.6e-5 relative incl. a
-    24-fold degenerate cluster (scripts/validate_eigh_svd.py; the
-    two-sided kernel remains available via
-    ``TPU_ASSIM_EIGH_KERNEL=twosided``). Everything else (f64 parity
-    paths on CPU, tiny batches, K > 64) stays on ``jnp.linalg.eigh``.
-
-    One-sided caveat: a symmetric matrix with an EXACT +lambda/-lambda
-    magnitude tie has a degenerate singular subspace, where V may mix the
-    two eigendirections — impossible for the PSD inputs this function is
-    for (see :func:`eigh_svd_jacobi`); pass
-    ``TPU_ASSIM_EIGH_KERNEL=twosided`` for indefinite spectra with
-    magnitude ties.
-
-    ``use_jacobi`` controls the dispatch explicitly (a *static*, trace-time
-    choice — the backends are different compiled programs); ``None``
-    defers to :func:`set_jacobi_dispatch` / the ``TPU_ASSIM_JACOBI`` env
-    var. Note that flipping the env vars after a caller has been
-    jit-compiled cannot retroactively change that caller's backend.
+    pytassim/core/utils.py:57). On the GPU this is cuSOLVER's batched
+    ``syevd``/``syevj``, as XLA chooses.
     """
-    if use_jacobi is None:
-        use_jacobi = jacobi_dispatch_enabled()
-    k = tensor.shape[-1]
-    batch = 1
-    for dim in tensor.shape[:-2]:
-        batch *= dim
-    if (
-        use_jacobi
-        and tensor.dtype == jnp.float32
-        and tensor.ndim >= 3
-        and k <= 64
-        and batch >= 256
-        and jax.default_backend() == "tpu"
-    ):
-        import os
-
-        if os.environ.get("TPU_ASSIM_EIGH_KERNEL", "onesided") == "twosided":
-            from tpu_assim.ops.pallas.jacobi import eigh_jacobi
-
-            return eigh_jacobi(tensor)
-        from tpu_assim.ops.pallas.svd import eigh_svd_jacobi
-
-        return eigh_svd_jacobi(tensor)
     return jnp.linalg.eigh(tensor)
 
 
@@ -349,8 +195,8 @@ def inv_sqrt_psd_newton(
     Coupled Denman–Beavers/Newton–Schulz iteration: for SPD ``A`` scaled to
     spectral radius < 2, iterate ``Y <- Y (3I - Z Y)/2``, ``Z <- (3I - Z Y)/2 Z``
     which converges to ``Y = A^{-1/2}``, ``Z = A^{1/2}`` (up to the scale
-    factor). Every step is a batched K x K matmul, i.e. pure MXU work — the
-    fast alternative to eigendecomposition for the LETKF hot path. Exposed as
+    factor). Every step is a batched K x K matmul — the matmul-only
+    alternative to eigendecomposition for the LETKF hot path. Exposed as
     an opt-in solver; the default path uses :func:`evd` for exact parity with
     the reference math.
 
@@ -378,9 +224,9 @@ def inv_sqrt_psd_newton(
     norm = jnp.maximum(norm, jnp.finfo(a.dtype).tiny)
     a_n = a / norm
 
-    # Full-precision matmuls: the iteration amplifies rounding, and the
-    # TPU default (bf16 MXU passes for f32 operands) loses ~3 digits over
-    # ~20 iterations. HIGHEST keeps the MXU path but accumulates in f32.
+    # Full-precision matmuls: the iteration amplifies rounding, and a
+    # reduced-precision f32 product (TF32 on the GPU) loses ~3 digits over
+    # ~20 iterations.
     hp = jax.lax.Precision.HIGHEST
 
     def body(_, yz):

@@ -1,7 +1,7 @@
 """
 Domain localization: Gaspari-Cohn taper functions.
 
-TPU-native rebuild of /root/reference/pytassim/localization/gaspari_cohn.py:
+JAX rebuild of /root/reference/pytassim/localization/gaspari_cohn.py:
 the piecewise-quintic correlation polynomials are kept verbatim (they define
 the algorithm), but the evaluation is a fully-traced, branch-free ``jnp.where``
 chain that evaluates all grid columns against all observations in one batched
@@ -192,7 +192,7 @@ class GaspariCohn(BaseLocalization):
         # Flat batched evaluation: vmap only the user distance function, then
         # run the piecewise polynomials on the whole [g, o] matrix at once.
         # (vmapping the polynomial chain per column lowers to a ~35x slower
-        # program on TPU — the [1, o]-shaped where-chains defeat fusion.)
+        # program — the [1, o]-shaped where-chains defeat fusion.)
         # Subclasses overriding localize_obs get the generic per-column path.
         if type(self).localize_obs is not GaspariCohn.localize_obs:
             return BaseLocalization.taper_weights(self, grid_coords, obs_coords)
@@ -367,7 +367,7 @@ def neighborhood_select(
 
     The reference handles localization with *ragged* per-gridpoint obs
     subsets (pytassim/interface/wrapper.py:91-97) — impossible under XLA's
-    static shapes and wasteful on the MXU. Instead each column gets a static
+    static shapes and wasteful on the device. Instead each column gets a static
     ``max_obs``-sized neighborhood chosen by ``top_k`` of the taper weights.
     When every column has at most ``max_obs`` observations with nonzero
     taper weight (for Gaspari-Cohn: all obs within ``2 * radius``), the
@@ -452,7 +452,7 @@ def neighborhood_select_window(
         # too), and NaN-poison columns whose in-support count exceeds the
         # window — "at most max_obs nonzero-taper obs per column" becomes
         # the exact-iff condition, enforced loudly (same contract as the
-        # monolithic window kernels, ops/pallas/letkf.py).
+        # monolithic window kernels, ops/window.py).
         taper_name = (
             "gcinf" if isinstance(localization, GaspariCohnInf) else "gc2"
         )

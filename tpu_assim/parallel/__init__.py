@@ -1,4 +1,4 @@
-"""SPMD parallelism over TPU device meshes (replaces the reference's dask
+"""SPMD parallelism over device meshes (replaces the reference's dask
 distribution, SURVEY §2.10)."""
 
 from tpu_assim.parallel.mesh import (

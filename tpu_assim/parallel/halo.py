@@ -1,9 +1,9 @@
 """
-Obs-sharded LETKF with ICI halo exchange.
+Obs-sharded LETKF with halo exchange.
 
 The reference replicates the full observation arrays to every dask chunk
 (/root/reference/pytassim/interface/letkf.py:122-123 chunks obs as single
-whole chunks) — O(n_obs) memory and broadcast traffic per worker. On a TPU
+whole chunks) — O(n_obs) memory and broadcast traffic per worker. On a device
 mesh we can do strictly better: domain localization bounds the obs support of
 every analysis column to ``2 x`` the Gaspari-Cohn radius (the taper is
 exactly zero beyond, ops/localization.py), so a grid shard only ever needs
@@ -19,7 +19,7 @@ Design (the ring-attention-shaped component of SURVEY §5.7/§7.4):
    the columns they observe), so normalization never touches remote state.
 3. **Halo exchange**: each shard ppermutes its packed obs block
    ``[k perts | innovation | validity | coords]`` to its ``halo_width``
-   neighbors on each side — pure neighbor traffic on the ICI ring, no
+   neighbors on each side — pure neighbor traffic over the device links, no
    all-gather, no host.
 4. **Local solve**: taper + fixed-size neighborhood selection + batched
    weight solve + weight application, all shard-local.
@@ -53,14 +53,14 @@ __all__ = [
 def _plain_abs_dist_probe(localization, n_dim: int) -> bool:
     """Best-effort behavioral probe: does ``localization.dist_func`` act as
     plain per-dimension ``|obs - grid|`` coordinate distance (the distance
-    the window kernels implement) on representative offsets?
+    the window paths implement) on representative offsets?
 
     Used only to decide whether the ``local_method='window'`` builders warn
     about an ignored custom distance: ``dist_func`` is a *required*
     constructor argument of the Gaspari-Cohn classes and callers follow the
     ``[value, coord...]``-row convention with ad-hoc lambdas, so an
     identity check against :func:`~tpu_assim.ops.localization.abs_distance`
-    would warn on every intended build (round-4 advisor finding). The probe
+    would warn on every intended build. The probe
     offsets span well beyond the taper support so periodic wrap distances
     (e.g. :func:`periodic_distance` on typical domains) are detected. A
     dist_func that raises on the probe, returns an unexpected layout, or
@@ -215,7 +215,7 @@ def _halo_offsets(n_shards: int, halo_width: int):
 def _ring_halo(packed: jnp.ndarray, axis_name: str, n_shards: int,
                halo_width: int) -> jnp.ndarray:
     """Concatenate a shard's packed obs block with its halo neighbors'
-    blocks via ring ppermutes (neighbor-hop traffic on ICI). packed is
+    blocks via ring ppermutes (neighbor-hop collectives). packed is
     [rows, o_ps]; returns [rows, n_blocks * o_ps]."""
     blocks = [packed]
     for off in _halo_offsets(n_shards, halo_width):
@@ -236,7 +236,7 @@ def _ring_halo_sorted(packed: jnp.ndarray, coord_row: int, axis_name: str,
     Wrapped blocks — source shard ``s + off`` outside ``[0, n)`` — have
     their coordinate row pushed to ``-/+ float32.max``: on a non-periodic
     domain their taper weight is zero anyway, and the sentinel coordinates
-    keep the concat sorted AND rank-inert in the window kernel (below /
+    keep the concat sorted AND rank-inert in the window analysis (below /
     above every support bound). Unlike :func:`_halo_offsets`, aliased
     ``+/-off`` hops on small rings are included on BOTH sides, each masked
     by its own wrap condition — on a non-periodic domain at most one side
@@ -273,89 +273,6 @@ def _ring_halo_sorted(packed: jnp.ndarray, coord_row: int, axis_name: str,
     return jnp.concatenate(blocks, axis=-1)
 
 
-def _ring_halo_rdma(packed: jnp.ndarray, axis_name: str, n_shards: int,
-                    halo_width: int,
-                    interpret: bool | None = None) -> jnp.ndarray:
-    """The halo exchange as ONE Pallas kernel using inter-chip RDMA
-    (``pltpu.make_async_remote_copy``) instead of XLA ppermutes.
-
-    All halo hops are issued as concurrent remote DMAs after a rendezvous
-    barrier with the halo partners, so the transfers overlap each other on
-    the ICI links (XLA serializes the ppermutes of :func:`_ring_halo` into
-    distinct collective steps). Produces bit-identical block layout to
-    ``_ring_halo``: slot ``j+1`` holds the block of shard ``(me - off_j)``.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    offsets = _halo_offsets(n_shards, halo_width)
-    n_blk = len(offsets)
-    if n_blk == 0:
-        return packed
-    rows, o_ps = packed.shape
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    # Mosaic requires the remote-DMA destination slice (out_ref.at[i],
-    # [rows, o_ps]) tile-aligned: pad to (8, 128) multiples and slice the
-    # padding back off after the exchange (caught by the compiled smoke
-    # tests_tpu/test_compiled_parity.py::TestRdmaCompiledSmoke — interpret
-    # mode accepts any shape).
-    rows_p = -(-rows // 8) * 8
-    o_p = -(-o_ps // 128) * 128
-    if (rows_p, o_p) != (rows, o_ps):
-        packed = jnp.pad(packed, ((0, rows_p - rows), (0, o_p - o_ps)))
-
-    def kern(in_ref, out_ref, send_sem, recv_sem):
-        my = jax.lax.axis_index(axis_name)
-        n = jnp.int32(n_shards)
-        # rendezvous: every halo partner must have entered the kernel (its
-        # receive buffer exists) before anyone writes remotely. The offset
-        # set is symmetric as a set (h and -h mod n), so signaling each
-        # destination also covers each source. (The interpreter emulates
-        # devices synchronously and cannot lower the barrier semaphore, so
-        # the rendezvous is compiled-mode only.)
-        if not interpret:
-            barrier = pltpu.get_barrier_semaphore()
-            for off in offsets:
-                pltpu.semaphore_signal(
-                    barrier, inc=1,
-                    device_id=jax.lax.rem(my + jnp.int32(off), n),
-                    device_id_type=pltpu.DeviceIdType.LOGICAL,
-                )
-            pltpu.semaphore_wait(barrier, n_blk)
-        out_ref[0] = in_ref[:]
-        copies = []
-        for i, off in enumerate(offsets):
-            rdma = pltpu.make_async_remote_copy(
-                src_ref=in_ref,
-                dst_ref=out_ref.at[1 + i],
-                send_sem=send_sem.at[i],
-                recv_sem=recv_sem.at[i],
-                device_id=jax.lax.rem(my + jnp.int32(off), n),
-                device_id_type=pltpu.DeviceIdType.LOGICAL,
-            )
-            rdma.start()
-            copies.append(rdma)
-        for rdma in copies:
-            rdma.wait()
-
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((1 + n_blk, rows_p, o_p),
-                                       packed.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((n_blk,)),
-                        pltpu.SemaphoreType.DMA((n_blk,))],
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, collective_id=0,
-        ),
-        interpret=interpret,
-    )(packed)
-    out = out[:, :rows, :o_ps]
-    return out.transpose(1, 0, 2).reshape(rows, (1 + n_blk) * o_ps)
-
-
 def _halo_auto_degree(state_data, obs_vals, obs_var, obs_lidx, obs_coords,
                       obs_valid, n_shards, max_obs, inf_factor,
                       consecutive: bool) -> int:
@@ -370,7 +287,7 @@ def _halo_auto_degree(state_data, obs_vals, obs_var, obs_lidx, obs_coords,
     any taper/top-k selection since ``w <= 1``)."""
     import numpy as np
 
-    from tpu_assim.ops.pallas.letkf import cheb_degree_for
+    from tpu_assim.ops.window import cheb_degree_for
 
     state = np.asarray(state_data, dtype=np.float64)
     k, g = state.shape
@@ -414,7 +331,7 @@ def _halo_max_in_support(obs_coords, obs_valid, n_shards, radius, taper,
     bucket slots are pinned to the shard's max valid obs coordinate (left
     grid edge fallback is <= that of the ring predecessor) and, though
     zero-valued, consume window slots whenever their pinned coordinate
-    falls inside a column's support — the kernel's overflow guard counts
+    falls inside a column's support — the analysis's overflow guard counts
     them, so the precheck must too. Grid columns are not needed: the
     worst count over columns equals the largest candidate cluster inside
     any open support window, evaluated at candidate positions."""
@@ -463,20 +380,14 @@ def halo_letkf_analysis(
     method: str = "eigh",
     newton_iters: int = 25,
     axis_name: str = "grid",
-    use_pallas: bool = False,
     cheb_degree: int | None = None,
-    comm: str = "ppermute",
     local_method: str = "topk",
     max_obs_strict: bool = True,
 ) -> Callable:
     """Build a jitted obs-sharded LETKF analysis over ``mesh``.
 
-    ``comm``: ``"ppermute"`` — XLA ring collectives (default);
-    ``"rdma"`` — the halo exchange as one Pallas kernel of concurrent
-    inter-chip remote DMAs (:func:`_ring_halo_rdma`), bit-identical blocks.
-
-    ``cheb_degree``: Chebyshev degree for the fused local solves
-    (``use_pallas`` / ``local_method="window"``). ``None`` (default) =
+    ``cheb_degree``: Chebyshev degree for the windowed local solve
+    (``local_method="window"``). ``None`` (default) =
     auto: each concrete call measures the spectral bound of the obs-space
     operator host-side and picks the smallest sufficient degree
     (:func:`_halo_auto_degree` — the multi-chip port of the class API's
@@ -488,8 +399,8 @@ def halo_letkf_analysis(
     ``local_method``: ``"topk"`` (default) — dense taper over all halo
     candidates + ``top_k`` neighborhood selection per column (any
     localization / distance function). ``"window"`` — each shard runs the
-    monolithic sorted-window kernel
-    (:func:`tpu_assim.ops.pallas.letkf.letkf_window_analysis_fused`) on its
+    sorted-window analysis
+    (:func:`tpu_assim.ops.window.letkf_window_analysis_fused`) on its
     halo candidates: no dense [g_loc, o_cand] taper, no top_k, no gather —
     the fast path for 1-D NON-PERIODIC Gaspari-Cohn localization with
     coordinate-sorted obs. NOTE the window path replaces the
@@ -498,12 +409,12 @@ def halo_letkf_analysis(
     distance that works under ``"topk"`` gives different (finite) results
     here, so a warning is emitted when ``localization.dist_fn`` is set.
     Requirements are checked at build time where possible; sortedness
-    violations NaN-poison loudly inside the kernel. Pad slots are pinned
+    violations NaN-poison the analysis loudly. Pad slots are pinned
     to the shard's max valid obs coordinate (the shard's LEFT grid edge
     when it owns no obs; values are already zeroed, so a selected pad
     contributes nothing but does consume window slots — size ``max_obs``
-    with headroom when shard obs counts are unbalanced; the kernel's
-    strict guard stays loud).
+    with headroom when shard obs counts are unbalanced; the strict guard
+    stays loud).
 
     Returns
     -------
@@ -556,14 +467,14 @@ def halo_letkf_analysis(
         _win_eps = float(localization.epsilon)
         # dist_func is a required constructor argument, so warn only when
         # it does NOT behave as the plain coordinate distance the window
-        # kernel implements — otherwise the warning is pure noise on every
-        # intended build (round-4 advisor finding).
+        # path implements — otherwise the warning is pure noise on every
+        # intended build.
         if not _plain_abs_dist_probe(localization, 1):
             import logging
 
             logging.getLogger(__name__).warning(
                 "local_method='window' ignores the localization's dist_fn: "
-                "the window kernel uses plain |obs_x - grid_x| coordinate "
+                "the window path uses plain |obs_x - grid_x| coordinate "
                 "distance and masks ring-wrapped candidates (non-periodic "
                 "domains only). Use local_method='topk' for periodic or "
                 "custom distances."
@@ -598,10 +509,9 @@ def halo_letkf_analysis(
             # grid edge when the shard owns no obs; their values are zeroed
             # above, so a selected pad contributes exactly nothing, and the
             # pinning keeps the concat of neighboring blocks sorted),
-            # halo-exchange in ascending ring order, and run the monolithic
-            # window kernel on the candidates — no dense taper, no top_k,
-            # no gather.
-            from tpu_assim.ops.pallas.letkf import (
+            # halo-exchange in ascending ring order, and run the window
+            # analysis on the candidates — no dense taper, no top_k.
+            from tpu_assim.ops.window import (
                 letkf_window_analysis_fused,
             )
 
@@ -610,7 +520,7 @@ def halo_letkf_analysis(
             # coordinate), so the cross-block concat stays sorted: the max
             # valid obs coordinate, or the shard's left grid edge when the
             # shard owns no obs. Sortedness violations (unsorted input obs)
-            # NaN-poison inside the kernel — loud, never silently wrong.
+            # NaN-poison the analysis — loud, never silently wrong.
             big = jnp.asarray(jnp.finfo(jnp.float32).max, ocoords.dtype)
             pad_x = jnp.maximum(
                 jnp.max(jnp.where(valid > 0, ocoords[:, 0], -big)),
@@ -637,10 +547,7 @@ def halo_letkf_analysis(
         packed = jnp.concatenate(
             [perts, innov[None, :], valid[None, :], ocoords.T], axis=0
         )
-        if comm == "rdma":
-            cand = _ring_halo_rdma(packed, axis_name, n_shards, halo_width)
-        else:
-            cand = _ring_halo(packed, axis_name, n_shards, halo_width)
+        cand = _ring_halo(packed, axis_name, n_shards, halo_width)
         c_perts = cand[:k]
         c_innov = cand[k]
         c_valid = cand[k + 1]
@@ -667,20 +574,6 @@ def halo_letkf_analysis(
 
         mean_s = jnp.mean(state_loc, axis=0)
         sp = state_loc - mean_s[None, :]
-        if use_pallas:
-            # fused lane-major Chebyshev kernel (the fast single-chip path,
-            # ops/pallas/letkf.py:letkf_nbh_analysis_cheb) on each shard
-            from tpu_assim.ops.localization import safe_sqrt
-            from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_cheb
-
-            sw = safe_sqrt(top_w).astype(c_perts.dtype)       # [g, nb]
-            zh = c_perts[:, top_idx].transpose(2, 0, 1) * sw.T[:, None, :]
-            yh = c_innov[top_idx].T * sw.T                    # [nb, g]
-            reg = jnp.asarray((k - 1) / inf_factor, c_perts.dtype)
-            out = letkf_nbh_analysis_cheb(
-                zh, yh, sp, mean_s, reg, k, degree=degree
-            )
-            return out.astype(state_loc.dtype)
         weights = letkf_weights_nbh(
             c_perts, c_innov, top_idx.astype(jnp.int32),
             top_w.astype(c_perts.dtype), rho,
@@ -717,11 +610,9 @@ def halo_letkf_analysis(
                     P(),                  # rho
                 ),
                 out_specs=P(None, axis_name),
-                # pallas_call outputs carry no varying-mesh-axes metadata,
-                # so the manual check is disabled only on the Pallas/RDMA
-                # branches; the plain-XLA branch keeps it
-                check_vma=not (use_pallas or comm == "rdma"
-                               or local_method == "window"),
+                # the window path's GPU kernel (a pallas_call) declares no
+                # varying-mesh-axes metadata on its output
+                check_vma=local_method != "window",
             )
             return sharded(
                 state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
@@ -732,7 +623,7 @@ def halo_letkf_analysis(
         return analysis_fn_inner
 
     _cache: dict = {}
-    needs_degree = use_pallas or local_method == "window"
+    needs_degree = local_method == "window"
 
     def analysis_fn(state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
                     obs_valid, grid_coords):
@@ -741,7 +632,7 @@ def halo_letkf_analysis(
             for a in (state_data, obs_vals, obs_var, obs_coords, obs_valid)
         )
         if (local_method == "window" and max_obs_strict and concrete):
-            # In-support precheck (VERDICT r3 #3): the fixed-size window is
+            # In-support precheck: the fixed-size window is
             # exact iff no column sees more in-support candidates (real obs
             # PLUS coordinate-pinned pad slots) than max_obs — degree
             # truncation and slot exhaustion are the two error classes the
@@ -868,8 +759,8 @@ def _ring_halo_2d(packed, row_axis, col_axis, mesh_rows, mesh_cols,
     """2-D halo: exchange a tile's packed obs block with its
     (2*halo_r+1) x (2*halo_c+1) neighborhood of tiles. Row-axis ppermutes
     first, then column-axis ppermutes of the row-concatenated block —
-    corners arrive via the two-step relay, all traffic neighbor-hop on the
-    ICI torus. packed [rows, p] -> [rows, (2hr+1)*(2hc+1)*p]."""
+    corners arrive via the two-step relay, all traffic neighbor-hop
+    collectives. packed [rows, p] -> [rows, (2hr+1)*(2hc+1)*p]."""
     row_blocks = [packed]
     for off in _halo_offsets(mesh_rows, halo_r):
         row_blocks.append(jax.lax.ppermute(
@@ -887,10 +778,10 @@ def _ring_halo_2d(packed, row_axis, col_axis, mesh_rows, mesh_cols,
 def _ring_halo_2d_masked(packed, coord_start, row_axis, col_axis,
                          mesh_rows, mesh_cols, halo_r, halo_c):
     """2-D halo exchange for the windowed local solve: every block whose
-    source tile wrapped around the torus on either axis gets its coordinate
+    source tile wrapped around the mesh ring on either axis gets its coordinate
     rows (``packed[coord_start:]``) pushed to ``+float32.max`` — on a
     non-periodic domain wrapped candidates carry zero taper weight, and the
-    sentinel removes them from every y-band of the 2-D window kernel
+    sentinel removes them from every y-band of the 2-D window analysis
     (which re-sorts internally, so no ordering contract is needed).
     Aliased ``+/-off`` hops on small rings are included on BOTH sides, each
     masked by its own wrap condition (at most one side is unwrapped per
@@ -934,7 +825,6 @@ def halo_letkf_analysis_2d(
     newton_iters: int = 25,
     row_axis: str = "row",
     col_axis: str = "col",
-    use_pallas: bool = False,
     cheb_degree: int | None = None,
     local_method: str = "topk",
     obs_block: int = 0,
@@ -957,7 +847,7 @@ def halo_letkf_analysis_2d(
     with obs arrays from :func:`shard_observations_2d`. State rows shard over
     ``row_axis``, columns over ``col_axis``; every tile halo-exchanges its
     packed obs block with its ``(2*halo[0]+1) x (2*halo[1]+1)`` tile
-    neighborhood over the ICI torus (two-axis neighbor ppermutes, corners by
+    neighborhood (two-axis neighbor ppermutes, corners by
     relay). Exact when the taper support fits inside the halo (the 2-D
     :func:`halo_width_for` bound per axis).
     """
@@ -1003,8 +893,8 @@ def halo_letkf_analysis_2d(
 
             logging.getLogger(__name__).warning(
                 "local_method='window' ignores the localization's dist_fn: "
-                "the 2-D window kernel uses per-dimension |obs - grid| "
-                "coordinate distances and masks torus-wrapped candidates "
+                "the 2-D window path uses per-dimension |obs - grid| "
+                "coordinate distances and masks ring-wrapped candidates "
                 "(non-periodic domains only). Use local_method='topk' for "
                 "periodic or custom distances."
             )
@@ -1031,12 +921,12 @@ def halo_letkf_analysis_2d(
             perts = (ens_obs - mean) * rcinv * valid
             innov = (vals - mean[0]) * rcinv * valid
         if local_method == "window":
-            # Windowed local solve: per-tile monolithic 2-D window kernel
-            # on the halo candidates (band/window selection + product taper
-            # + Chebyshev solve fused; the kernel re-sorts obs internally,
+            # Windowed local solve: the 2-D window analysis on the halo
+            # candidates (band/window selection + product taper +
+            # Chebyshev solve; it re-sorts obs internally,
             # so only wrap/pad masking is needed). Obs coordinate columns
             # must be (x, y[, extra...]) matching the grid coords.
-            from tpu_assim.ops.pallas.letkf import (
+            from tpu_assim.ops.window import (
                 letkf_window_analysis_fused_2d,
             )
 
@@ -1091,26 +981,13 @@ def halo_letkf_analysis_2d(
             top_idx = jnp.pad(top_idx, ((0, 0), (0, pad)))
         mean_s = jnp.mean(state_flat, axis=0)
         sp = state_flat - mean_s[None, :]
-        if use_pallas:
-            from tpu_assim.ops.localization import safe_sqrt
-            from tpu_assim.ops.pallas.letkf import letkf_nbh_analysis_cheb
-
-            sw = safe_sqrt(top_w).astype(c_perts.dtype)
-            zh = c_perts[:, top_idx].transpose(2, 0, 1) * sw.T[:, None, :]
-            yh = c_innov[top_idx].T * sw.T
-            reg = jnp.asarray((k - 1) / inf_factor, c_perts.dtype)
-            out = letkf_nbh_analysis_cheb(
-                zh, yh, sp, mean_s, reg, k, degree=degree
-            ).astype(state_loc.dtype)
-        else:
-            weights = letkf_weights_nbh(
-                c_perts, c_innov, top_idx.astype(jnp.int32),
-                top_w.astype(c_perts.dtype), rho,
-                method=method, newton_iters=newton_iters,
-            )
-            out = mean_s[None, :] + jnp.einsum(
-                "kg,gkm->mg", sp, weights,
-                precision=jax.lax.Precision.HIGHEST)
+        weights = letkf_weights_nbh(
+            c_perts, c_innov, top_idx.astype(jnp.int32),
+            top_w.astype(c_perts.dtype), rho,
+            method=method, newton_iters=newton_iters,
+        )
+        out = mean_s[None, :] + jnp.einsum(
+            "kg,gkm->mg", sp, weights, precision=jax.lax.Precision.HIGHEST)
         return out.reshape(k, tr, tc)
 
     def _build(degree: int):
@@ -1140,8 +1017,7 @@ def halo_letkf_analysis_2d(
                     P(),
                 ),
                 out_specs=P(None, row_axis, col_axis),
-                # see halo_letkf_analysis: check disabled only for Pallas
-                check_vma=not (use_pallas or local_method == 'window'),
+                check_vma=local_method != "window",
             )
             return sharded(
                 state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
@@ -1152,18 +1028,18 @@ def halo_letkf_analysis_2d(
         return analysis_fn_inner
 
     _cache: dict = {}
-    needs_degree = use_pallas or local_method == "window"
+    needs_degree = local_method == "window"
     n_tiles_mesh = int(m_rows) * int(m_cols)
 
     def _check_support_2d(obs_coords, obs_valid, grid_coords):
-        """Per-shard exact in-support precheck: each tile's kernel sees the
-        valid obs of its (2hr+1) x (2hc+1) tile neighborhood (torus-wrapped
+        """Per-shard exact in-support precheck: each tile's analysis sees the
+        valid obs of its (2hr+1) x (2hc+1) tile neighborhood (ring-wrapped
         sources are sentinel-masked out on non-periodic domains and pad
         slots carry out-of-band sentinel coordinates), tiled over the
-        LOCAL flat grid exactly like the kernel."""
+        LOCAL flat grid exactly like the analysis."""
         import numpy as _np
 
-        from tpu_assim.ops.pallas.letkf import max_in_support_2d
+        from tpu_assim.ops.window import max_in_support_2d
 
         coords = _np.asarray(obs_coords)
         valid = _np.asarray(obs_valid) > 0
@@ -1178,7 +1054,7 @@ def halo_letkf_analysis_2d(
                 for di in range(-halo_r, halo_r + 1):
                     si = i + di
                     if si < 0 or si >= int(m_rows):
-                        continue  # wrapped: sentinel-masked in the kernel
+                        continue  # wrapped: sentinel-masked
                     for dj in range(-halo_c, halo_c + 1):
                         sj = j + dj
                         if sj < 0 or sj >= int(m_cols):

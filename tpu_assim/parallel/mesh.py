@@ -1,7 +1,7 @@
 """
 Device-mesh construction and state sharding.
 
-TPU-native replacement for the reference's distribution layer: pytassim
+JAX replacement for the reference's distribution layer: pytassim
 distributes the per-gridpoint LETKF solves with dask chunking of the ``grid``
 dim (/root/reference/pytassim/interface/letkf.py:121-123,
 mixin_local.py:32-34) and leaves multi-node execution to the dask scheduler.
@@ -17,7 +17,7 @@ while the analysis shards over grid columns — XLA inserts the resharding
 collective between phases.
 
 Multi-host: the same program runs under ``jax.distributed.initialize``; the
-mesh then spans all hosts' devices and the grid axis rides ICI/DCN.
+mesh then spans all hosts' devices and the grid axis rides the interconnect (NVLink within a host).
 """
 
 from typing import Optional

@@ -8,7 +8,7 @@ plus stale mpi4py pool examples (examples/benchmark_letkf_dist.py:105-112).
 Here multi-host is the same single program: every host calls
 ``initialize_multihost()`` once, builds the same global mesh over all
 devices of the pod slice, and runs the identical jitted analysis — XLA
-routes the grid-axis collectives over ICI within a slice and DCN across
+routes the grid-axis collectives over the intra-host links and the network across
 slices. There is no scheduler process at all.
 
 Typical driver (same script on every host, e.g. launched by GKE/xmanager):
@@ -46,7 +46,7 @@ def initialize_multihost(
     process_id: Optional[int] = None,
 ) -> None:
     """One-time ``jax.distributed`` handshake. With no arguments the cluster
-    environment (TPU metadata / GKE env vars) is auto-detected; arguments are
+    environment (cluster environment variables) is auto-detected; arguments are
     for manual bring-up. No-op when already initialized or single-process."""
     try:
         jax.distributed.initialize(

@@ -7,8 +7,8 @@ The library is compiled once per source change with g++ (-O3 -fopenmp) into
 point degrades to a numpy implementation with identical semantics, so the
 package works everywhere and the native path is a pure accelerator.
 
-Role in the framework (SURVEY §2 native-component obligations): the TPU path
-is XLA/Pallas; this is the *host* runtime — CPU-only deployments, input
+Role in the framework (SURVEY §2 native-component obligations): the device path
+is XLA; this is the *host* runtime — CPU-only deployments, input
 pipeline (obs bucketing), and an independent C++ oracle for the solver tests.
 """
 
@@ -35,7 +35,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "native", "letkf_cpu.cpp")
 _BUILD_DIR = os.path.join(_REPO_ROOT, "native", "build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libtpu_assim_native.so")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libassim_native.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -3,7 +3,7 @@ Background observation-ingest pipeline (ctypes over native/obs_pipeline.cpp,
 with a pure-numpy serial fallback).
 
 The reference overlaps observation IO with compute through dask's lazy task
-graph (xarray datasets flow straight into ``apply_ufunc``); the TPU rebuild
+graph (xarray datasets flow straight into ``apply_ufunc``); the JAX rebuild
 runs one jitted SPMD program, so the overlap moves into the HOST runtime:
 C++ worker threads parse and shard-bucket the next cycle's observation
 files while the chip runs the current analysis. Batches come out in the
@@ -36,7 +36,7 @@ _MAGIC = b"TAOB"
 
 
 def _lib():
-    lib = _get_lib_for(_SRC, "libtpu_assim_obs.so")
+    lib = _get_lib_for(_SRC, "libassim_obs.so")
     if lib is not None and not getattr(lib, "_obs_sigs", False):
         lib.obs_loader_open.restype = ctypes.c_void_p
         lib.obs_loader_open.argtypes = [

@@ -1,7 +1,7 @@
 """
 Ensemble model state.
 
-TPU-native replacement for the reference's xarray accessor ``ModelState``
+JAX replacement for the reference's xarray accessor ``ModelState``
 (/root/reference/pytassim/state.py:52-229): instead of a ``DataArray`` with a
 MultiIndex grid, the state is a registered pytree holding one dense
 ``[var, time, ensemble, grid]`` array plus explicit coordinate arrays — the

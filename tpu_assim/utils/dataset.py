@@ -4,7 +4,7 @@ Minimal labeled-dataset layer (host-side, numpy).
 The reference leans on xarray for its real-model adapters
 (/root/reference/pytassim/model/terrsysmp/common.py) and on pandas
 MultiIndexes for stacked grids (pytassim/state.py:164-222). xarray is a poor
-fit for a TPU pipeline (lazy graphs, object coords, host-bound), so this
+fit for a device pipeline (lazy graphs, object coords, host-bound), so this
 module provides the few labeled operations the adapters actually need —
 variables with named dims, coordinate arrays, reindex-by-value, dim renaming,
 stacking — over plain contiguous numpy arrays. Stacked grids keep an explicit

@@ -5,7 +5,7 @@ The reference's only observability is a wall-clock log line around
 ``assimilate`` (/root/reference/pytassim/interface/base.py:471,508-511) and
 CSV timings in benchmark scripts (examples/benchmark_efficiency.py:120-142).
 Here (SURVEY §5.1): named phase timers with a process-wide registry, a
-``jax.profiler`` trace context for real XLA/TPU timelines, and annotated
+``jax.profiler`` trace context for real XLA device timelines, and annotated
 trace spans that show up in both.
 
 Usage::
@@ -94,7 +94,7 @@ def reset() -> None:
 
 @contextlib.contextmanager
 def trace(log_dir: str, host_tracer_level: int = 2) -> Iterator[None]:
-    """``jax.profiler`` trace context: writes an XLA/TPU timeline viewable
+    """``jax.profiler`` trace context: writes an XLA device timeline viewable
     in XProf / TensorBoard (the strict upgrade over the reference's
     wall-clock logging, SURVEY §5.1)."""
     jax.profiler.start_trace(log_dir, create_perfetto_link=False)
