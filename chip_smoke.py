@@ -314,7 +314,8 @@ def phase_cycle(w, nb, n_cycles=3):
 
 
 def phase_lienks(w, nb, reduced=(1000, 100)):
-    """make_lienks_step (2 outer iterations, batched [g, 40, 40] SVDs):
+    """make_lienks_step (2 outer iterations, batched [g, 40, 40] LU
+    inverses and eighs):
     timed at full size; compared at a reduced size with the same program
     in float64 on the CPU."""
     import jax
@@ -639,9 +640,13 @@ def phase_four_halo_2d(n_dev=4, ens=100, side=1024, n_obs=1 << 16,
     return row
 
 
-def phase_four_sharded_letkf(n_dev=4, ens=100, cols_per_card=1 << 13,
+def phase_four_sharded_letkf(n_dev=4, ens=100, cols_per_card=1 << 16,
                              n_obs=256):
-    """parallel.letkf.sharded_letkf_analysis (dense taper + eigh weights)."""
+    """parallel.letkf.sharded_letkf_analysis (dense taper + eigh weights).
+
+    2**16 columns per card, not 2**18: the program holds about 140 KB per
+    column (the [g, k, k] weights and their chunks), so the one-card run
+    of the whole grid it is compared with has to stay under ~40 GB."""
     import jax
 
     from bench import build_workload
@@ -684,7 +689,15 @@ def phase_four_sharded_letkf(n_dev=4, ens=100, cols_per_card=1 << 13,
 
 def phase_four_lienks(n_dev=4, ens=100, cols_per_card=1 << 14,
                       n_obs=1 << 12):
-    """make_lienks_step with the state sharded over the grid (GSPMD)."""
+    """make_lienks_step with the state sharded over the grid (GSPMD).
+
+    2**14 columns per card, not 2**18: the program holds about 240 KB per
+    column (several [g, k, k] weight matrices), so the one-card run of the
+    whole grid it is compared with has to stay well inside one card, and
+    that reference (2**16 columns) already spends ~2.5 min compiling one
+    reduce fusion. Each
+    card's eigh batch (16384 matrices of 100 x 100) is past cuSOLVER's
+    batch limit, so the chunked path of ``ops.linalg.eigh_psd`` runs."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -718,10 +731,10 @@ def phase_four_lienks(n_dev=4, ens=100, cols_per_card=1 << 14,
 
 
 def four_card(report):
+    report.run("four_lienks_sharded", phase_four_lienks)
+    report.run("four_sharded_letkf", phase_four_sharded_letkf)
     report.run("four_halo_1d", phase_four_halo_1d)
     report.run("four_halo_2d_2x2", phase_four_halo_2d)
-    report.run("four_sharded_letkf", phase_four_sharded_letkf)
-    report.run("four_lienks_sharded", phase_four_lienks)
 
 
 def main(argv):

@@ -3,7 +3,7 @@
 //
 // Role (SURVEY §5.8 / build brief "native data-loader"): the reference
 // leans on dask's lazy task graph to overlap observation IO with compute
-// (pytassim feeds xarray datasets straight into apply_ufunc). The TPU
+// (pytassim feeds xarray datasets straight into apply_ufunc). This
 // rebuild runs one jitted SPMD program instead, so IO overlap must come
 // from the HOST runtime: this pipeline reads + buckets the NEXT cycle's
 // observation files on C++ threads while the current analysis runs on the

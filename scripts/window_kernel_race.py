@@ -6,22 +6,27 @@ Race the 1-D window GPU kernel against its plain XLA twin, in turns
     python scripts/window_kernel_race.py            # on the GPU
     python scripts/window_kernel_race.py --tiny     # CPU rehearsal
 
-Both run the complete ``make_letkf_analysis(method="fused1d")`` program
-(obs operator, normalisation, window prologue, solve + apply); only the
-solve stage differs. Each turn reports the median step time over ``reps``
-calls that end in ``block_until_ready``, and the relative difference
-between the two outputs. One JSON line per shape.
+Both time the solve + apply stage of ``method="fused1d"`` on the same
+inputs: the normalised obs-space perturbations and innovations, the state
+perturbations and mean, and the window starts of the XLA prologue
+(``ops.window._window_starts``). The kernel is
+``ops.window_kernel.window_analysis_kernel``, the twin
+``ops.window._window_plain``. Each turn reports the median step time over
+``reps`` calls that end in ``block_until_ready``, and the relative
+difference between the two outputs. One JSON line per shape.
 """
 
+import functools
 import json
 import sys
 import time
 from pathlib import Path
-from unittest import mock
 
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+RADIUS, INF, DEGREE = 20.0, 1.1, 12
 
 
 def _median_ms(fn, args, reps):
@@ -36,55 +41,59 @@ def _median_ms(fn, args, reps):
     return 1e3 * float(np.median(times))
 
 
-def race(ens, g, o, four_point, reps, interpret):
+def stage_inputs(ens, g, o, four_point):
+    """The window stage's inputs for ``bench.build_workload``'s problem,
+    with a point or a 4-point-mean observation operator."""
     import jax
     import jax.numpy as jnp
 
     from bench import build_workload, exact_nb
-    from tpu_assim.analysis import make_letkf_analysis
     from tpu_assim.ops import window
-    from tpu_assim.ops.localization import GaspariCohn
 
-    w = build_workload(ens, g, o)
-    nb = exact_nb(window.max_in_support_1d(w[5][:, 0], w[4][:, 0], 20.0))
-    h = None
-    if four_point:
-        stencil = np.stack([(w[3] + s) % g for s in range(4)],
-                           axis=1).astype(np.int32)
+    state, vals, var, idx, grid, obs_xy = build_workload(ens, g, o)
+    nb = exact_nb(window.max_in_support_1d(obs_xy[:, 0], grid[:, 0], RADIUS))
+    stencil = (np.stack([(idx + s) % g for s in range(4)], axis=1)
+               if four_point else idx[:, None])
+    ens_obs = state[:, stencil].mean(axis=-1)
+    rcinv = 1.0 / np.sqrt(var)
+    mean = state.mean(axis=0)
+    f32 = np.float32
+    arrays = dict(
+        perts=((ens_obs - ens_obs.mean(axis=0)) * rcinv).astype(f32),
+        innov=((vals - ens_obs.mean(axis=0)) * rcinv).astype(f32),
+        obs_x=obs_xy[:, 0].astype(f32), grid_x=grid[:, 0].astype(f32),
+        sp=(state - mean)[None].astype(f32), mean=mean[None].astype(f32))
+    arrays = {key: jnp.asarray(a) for key, a in arrays.items()}
+    start, poison = jax.jit(functools.partial(
+        window._window_starts, nb=nb, epsilon=1e-5, taper="gc2",
+        strict=True))(arrays["obs_x"], arrays["grid_x"], f32(RADIUS))
+    args = (arrays["perts"], arrays["innov"], arrays["obs_x"],
+            arrays["grid_x"], start, poison, arrays["sp"], arrays["mean"],
+            jnp.float32((ens - 1) / INF), jnp.float32(RADIUS))
+    return args, nb
 
-        def h(state_data):
-            return jnp.mean(jnp.take(state_data, stencil, axis=-1), axis=-1)
 
-    loc = GaspariCohn((20.0,), lambda gc, oi: jnp.abs(oi[:, 1] - gc[1])[None])
-    args = tuple(jnp.asarray(a) for a in w)
-    original = window._window_call
+def race(ens, g, o, four_point, reps, interpret):
+    import jax
 
-    def forced(route):
-        def call(*a):
-            if route == "plain":
-                opts = dict(zip(("ens_size", "nb", "degree", "epsilon",
-                                 "taper"), a[10]))
-                return window._window_plain(*a[:10], **opts)
-            return original(*a[:11], interpret)
-        return call
+    from tpu_assim.ops.window import _window_plain
+    from tpu_assim.ops.window_kernel import window_analysis_kernel
 
+    args, nb = stage_inputs(ens, g, o, four_point)
+    opts = dict(ens_size=ens, nb=nb, degree=DEGREE, epsilon=1e-5,
+                taper="gc2")
     fns = {}
-    for route in ("plain", "kernel"):
-        # the jitted entry point caches its trace: clear it so each route
-        # is traced under its own patch
-        window.letkf_window_analysis_fused.clear_cache()
-        with mock.patch.object(window, "_window_call", forced(route)):
-            fn = jax.jit(make_letkf_analysis(
-                loc, 1.1, method="fused1d", max_obs=nb, cheb_degree=12,
-                obs_operator=h))
-            t0 = time.perf_counter()
-            fn = fn.lower(*args).compile()
-            fns[route] = (fn, time.perf_counter() - t0)
+    for route, fn in (
+            ("plain", functools.partial(_window_plain, **opts)),
+            ("kernel", functools.partial(window_analysis_kernel, **opts,
+                                         interpret=interpret))):
+        t0 = time.perf_counter()
+        fns[route] = (jax.jit(fn).lower(*args).compile(),
+                      time.perf_counter() - t0)
     out_p = np.asarray(fns["plain"][0](*args))
     out_k = np.asarray(fns["kernel"][0](*args))
-    turns = []
-    for route in ("plain", "kernel", "kernel", "plain"):
-        turns.append((route, _median_ms(fns[route][0], args, reps)))
+    turns = [(route, _median_ms(fns[route][0], args, reps))
+             for route in ("plain", "kernel", "kernel", "plain")]
     return {
         "shape": {"ens": ens, "grid": g, "obs": o, "nb": nb,
                   "obs_operator": "4-point mean" if four_point else "point"},

@@ -76,6 +76,25 @@ def test_phase_strip2d():
     assert row["shape"]["n_strips"] == 2
 
 
+@pytest.mark.parametrize("phase, kwargs", [
+    ("phase_four_halo_1d", dict(ens=8, cols_per_card=64, obs_per_card=16)),
+    ("phase_four_halo_2d", dict(ens=8, side=32, n_obs=64, radius=2.0)),
+    ("phase_four_sharded_letkf", dict(ens=8, cols_per_card=64, n_obs=32)),
+    ("phase_four_lienks", dict(ens=8, cols_per_card=64, n_obs=32)),
+])
+def test_four_card_phase_on_virtual_devices(monkeypatch, phase, kwargs):
+    """The --four phases on four of the eight virtual CPU devices: each
+    sharded program against the same program on one device. The IEnKS
+    runs with a small eigh chunk limit, so its batch is split on every
+    device as it is on the cards."""
+    from tpu_assim.ops import linalg
+
+    monkeypatch.setattr(linalg, "EIGH_MAX_ROWS", 8 * 64)
+    row = getattr(cs, phase)(n_dev=4, **kwargs)
+    _assert_ok(row)
+    assert len(row["bytes_in_use_per_device"]) == 4
+
+
 def test_main_fails_without_gpu(capsys):
     """No GPU: the script raises before any phase and prints no result."""
     with pytest.raises(RuntimeError, match="no GPU"):

@@ -141,6 +141,46 @@ def test_eigh_psd_matches_numpy_f64(rng, k, kind, dtype):
                                atol=tol * np.sqrt(k))
 
 
+@pytest.mark.parametrize("batch", [(65536,), (65537,), (3, 65536)],
+                         ids=["one_call", "two_chunks_padded", "four_chunks"])
+def test_eigh_psd_chunks_large_batches(rng, batch):
+    """Past EIGH_MAX_ROWS rows eigh_psd splits the batch; each matrix's
+    factors are those of one unsplit call (8 x 8: 65536 matrices are the
+    limit exactly)."""
+    import jax
+    from tpu_assim.ops.linalg import EIGH_MAX_ROWS, eigh_psd
+
+    assert EIGH_MAX_ROWS == 65536 * 8
+    a = jnp.asarray(_spectrum_case(rng, "spd", 8, batch).astype("float32"))
+    ev, evec = jax.jit(eigh_psd)(a)
+    ref_ev, ref_evec = jax.jit(jnp.linalg.eigh)(a)
+    assert ev.shape == batch + (8,) and evec.shape == batch + (8, 8)
+    np.testing.assert_array_equal(np.asarray(ev), np.asarray(ref_ev))
+    np.testing.assert_array_equal(np.asarray(evec), np.asarray(ref_evec))
+
+
+def test_eigh_psd_chunks_keep_batch_sharding(rng):
+    """A batch sharded over the 8 devices in contiguous blocks runs its
+    chunks without moving a matrix between devices."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from tpu_assim.ops.linalg import eigh_psd
+
+    mesh = Mesh(np.asarray(jax.devices()[:8]), ("grid",))
+    sharding = NamedSharding(mesh, P("grid"))
+    a = jax.device_put(
+        jnp.asarray(_spectrum_case(rng, "spd", 8, (3 * 65536,)), "float32"),
+        sharding)
+    fn = jax.jit(eigh_psd, out_shardings=(sharding, sharding))
+    hlo = fn.lower(a).compile().as_text()
+    for op in ("all-gather", "all-to-all", "collective-permute",
+               "all-reduce"):
+        assert op not in hlo, op
+    ev = fn(a)[0]
+    np.testing.assert_array_equal(np.asarray(ev),
+                                  np.asarray(jnp.linalg.eigh(a)[0]))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("k", [8, 40, 100])
 def test_svd_matches_numpy_f64(rng, k, dtype):

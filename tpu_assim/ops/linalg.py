@@ -9,6 +9,7 @@ one batched XLA op instead of a Python loop.
 All recompositions are einsums so XLA can fuse scaling into the matmuls.
 """
 
+import math
 from functools import partial
 from typing import Optional, Tuple
 
@@ -104,6 +105,14 @@ def diagonal_add(tensor: jnp.ndarray, to_add: jnp.ndarray | float = 0.0) -> jnp.
     return tensor + to_add * eye
 
 
+#: Most matrix rows (batch x n) one batched eigensolver call takes. cuSOLVER's
+#: batched ``syev`` rejects larger batches (on an H100: [12288, 100, 100] and
+#: [16384, 40, 40] run, [16384, 100, 100] and [65536, 40, 40] fail in
+#: ``cusolverDnXsyevBatched_bufferSize``); this is under half of the largest
+#: size seen to run.
+EIGH_MAX_ROWS = 1 << 19
+
+
 def eigh_psd(tensor: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Batched symmetric eigendecomposition.
 
@@ -111,8 +120,30 @@ def eigh_psd(tensor: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     eigenvector columns — the reference's ``torch.symeig(..., upper=False)``,
     pytassim/core/utils.py:57). On the GPU this is cuSOLVER's batched
     ``syevd``/``syevj``, as XLA chooses.
+
+    A batch of more than :data:`EIGH_MAX_ROWS` rows runs as a sequence of
+    calls over a power-of-two number of chunks. Chunk ``j`` takes every
+    ``n_chunks``-th matrix from ``j`` on, so a batch sharded over devices
+    in contiguous blocks stays sharded the same way inside every call.
     """
-    return jnp.linalg.eigh(tensor)
+    n = tensor.shape[-1]
+    batch_shape = tensor.shape[:-2]
+    b = math.prod(batch_shape)
+    n_chunks = 1 << max(0, -(-b * n // EIGH_MAX_ROWS) - 1).bit_length()
+    if n_chunks == 1:
+        return jnp.linalg.eigh(tensor)
+    c = -(-b // n_chunks)
+    flat = tensor.reshape((b, n, n))
+    if c * n_chunks > b:  # pad with identities, discarded below
+        eye = jnp.eye(n, dtype=tensor.dtype)
+        flat = jnp.concatenate(
+            [flat, jnp.broadcast_to(eye, (c * n_chunks - b, n, n))])
+    chunks = jnp.swapaxes(flat.reshape((c, n_chunks, n, n)), 0, 1)
+    evals, evects = jax.lax.map(jnp.linalg.eigh, chunks)
+    evals = jnp.swapaxes(evals, 0, 1).reshape((-1, n))[:b]
+    evects = jnp.swapaxes(evects, 0, 1).reshape((-1, n, n))[:b]
+    return (evals.reshape(batch_shape + (n,)),
+            evects.reshape(batch_shape + (n, n)))
 
 
 @jax.custom_jvp

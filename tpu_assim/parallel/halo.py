@@ -1017,7 +1017,6 @@ def halo_letkf_analysis_2d(
                     P(),
                 ),
                 out_specs=P(None, row_axis, col_axis),
-                check_vma=local_method != "window",
             )
             return sharded(
                 state_data, obs_vals, obs_var, obs_local_idx, obs_coords,
